@@ -1,6 +1,7 @@
-# Deployment image for the TPU-native k-mer annotation engine.
+# Deployment image for the k-mer annotation engine (CPU base image: run
+# it with a CUDA-enabled JAX for the GPU path).
 # Counterpart of the reference's KBase sdkbase image + entrypoint
-# (ref /root/reference/Dockerfile, scripts/entrypoint.sh).
+# (the reference repo's Dockerfile, scripts/entrypoint.sh).
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends g++ make \

@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Scaling sweep harness: sharded lookup across mesh sizes.
 
-On real hardware this sweeps 1 chip -> 1 host -> N hosts and reports
+On real hardware this sweeps 1 device -> 1 host -> N hosts and reports
 reads/s (and lookups/s) scaling efficiency; in this repo's CI environment
 it runs the same SPMD program over virtual CPU devices, which validates the
 sharding/collective structure (not absolute speed — virtual devices share
@@ -249,21 +249,6 @@ def main() -> None:
                         "mode": "zero_collective_stream",
                         "lookups_per_sec": round(n_queries / dt, 1),
                         "hits": len(hits)})
-    # zero-collective sharded tile-join kernel (sparse regime, round 4)
-    from kmergutsjava_tpu.parallel.tilejoin_shards import (
-        TileJoinShardedLookup, make_tilejoin_mesh)
-
-    for shards in [s for s in (2, n_devices) if s <= n_devices]:
-        tj = TileJoinShardedLookup(table, mesh=make_tilejoin_mesh(shards))
-        tj.lookup(values, np.zeros(len(values)), np.arange(len(values)))
-        t0 = time.time()
-        hits = tj.lookup(values, np.zeros(len(values)),
-                         np.arange(len(values)))
-        dt = time.time() - t0
-        results.append({"mesh": f"tilejoin-{shards}", "devices": shards,
-                        "mode": "zero_collective_tilejoin",
-                        "lookups_per_sec": round(n_queries / dt, 1),
-                        "hits": len(hits)})
     # mark the zero-collective modes' structural overhead explicitly
     for row in results:
         if row["mode"].startswith("zero_collective"):
@@ -273,7 +258,7 @@ def main() -> None:
         "metric": "sharded_lookup_scaling",
         "platform": platform,
         "note": ("virtual CPU devices validate SPMD structure, not speed; "
-                 "run on a pod slice for real scaling"),
+                 "run on several GPUs for real scaling"),
         "decomposition_note": (
             "round 5: collective_overhead_frac = 1 - t(collectives traced "
             "as identity)/t(full) — same shapes/layout/local compute, so "

@@ -1,7 +1,7 @@
-// JSON-RPC client for the KmerGuts TPU annotation service.
+// JSON-RPC client for the KmerGuts annotation service.
 //
 // Counterpart of the reference's generated Java client
-// (/root/reference/lib/src/kmergutsjava/KmerGutsJavaClient.java, which
+// (the reference's lib/src/kmergutsjava/KmerGutsJavaClient.java, which
 // exposes only status() because the KIDL module is empty). This client is
 // dependency-free (JDK 11+ java.net.http plus a built-in minimal JSON
 // codec) and also drives the real `annotate` method and the async-job

@@ -1,5 +1,5 @@
 /**
- * JSON-RPC client for the KmerGuts TPU annotation service.
+ * JSON-RPC client for the KmerGuts annotation service.
  *
  * Counterpart of the reference's generated jQuery client
  * (lib/javascript/Client.js, which exposes only status because the KIDL

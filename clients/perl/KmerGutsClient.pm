@@ -1,6 +1,6 @@
 package KmerGutsClient;
 
-# JSON-RPC client for the KmerGuts TPU annotation service.
+# JSON-RPC client for the KmerGuts annotation service.
 #
 # Counterpart of the reference's generated Perl client
 # (lib/KmerGutsJava/KmerGutsJavaClient.pm, which exposes only status because

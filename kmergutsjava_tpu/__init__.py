@@ -1,40 +1,51 @@
-"""TPU-native signature-k-mer annotation engine.
+"""Signature-k-mer annotation engine on JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the
-reference engine (rsutormin/KmerGutsJava): FASTA -> 6-frame translation ->
+A from-scratch JAX/XLA framework with the capabilities of the reference
+engine (rsutormin/KmerGutsJava): FASTA -> 6-frame translation ->
 amino-acid 8-mer encoding -> signature-table lookup -> per-sequence function
 CALLs and OTU counts, bit-identical to the reference's text report.
 """
+import os as _os
+
 import jax as _jax
 
 # Encoded 8-mers span [0, 20^8) which exceeds int32; device-side encode and
-# home-slot computation use int64 (XLA:TPU emulates s64 on 32-bit lanes).
-# Pallas kernels avoid s64 via hi/lo int32 planes (see formats.kmer_table).
+# home-slot computation use int64.
 _jax.config.update("jax_enable_x64", True)
 
-def enable_compile_cache() -> None:
-    """Enable the persistent compilation cache (accelerator runs only).
+# The checkout this package runs from: the default compile-cache location.
+_REPO = _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__)))
 
-    TPU compiles of the probe kernels can be expensive (and wildly variable
-    through remote-compile relays); combined with power-of-two plane
-    buckets the cache makes them one-time. Deliberately NOT enabled for
+
+def compile_cache_dir() -> str:
+    """Where the persistent compilation cache lives: $JAX_COMPILATION_CACHE_DIR
+    when set, else one fixed directory in the checkout (the path is part of
+    the cache key, so it must not move between runs)."""
+    return (_os.environ.get("JAX_COMPILATION_CACHE_DIR")
+            or _os.path.join(_REPO, ".jax_cache"))
+
+
+def enable_compile_cache():
+    """Enable the persistent compilation cache for accelerator runs and
+    return its directory (None when left off). Call it before the first
+    compile.
+
+    The cache lives in ``compile_cache_dir()``: with $JAX_COMPILATION_CACHE_DIR
+    set, JAX already uses that directory and no other is set here. Every
+    executable is cached, however fast it compiled, so a second run of the
+    same program compiles nothing. Deliberately NOT enabled for
     CPU-backend runs: XLA:CPU AOT artifacts bake in host ISA feature flags
     and reloading them across heterogeneous hosts risks SIGILL.
     """
-    import os as _os
+    if _jax.default_backend() == "cpu":
+        return None
+    path = compile_cache_dir()
+    if not _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        _os.makedirs(path, exist_ok=True)
+        _jax.config.update("jax_compilation_cache_dir", path)
+    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    return path
 
-    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
-        return
-    try:
-        if _jax.default_backend() == "cpu":
-            return
-        _cache = _os.path.join(_os.path.expanduser("~"), ".cache",
-                               "kmergutsjava-tpu", "jax")
-        _os.makedirs(_cache, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cache)
-        _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:  # cache is an optimization, never fatal
-        pass
 
 __version__ = "0.1.0"
 
@@ -58,7 +69,7 @@ _EXPORTS = {
                        "write_data_dir"),
 }
 
-__all__ = sorted(_EXPORTS) + ["enable_compile_cache"]
+__all__ = sorted(_EXPORTS) + ["compile_cache_dir", "enable_compile_cache"]
 
 
 def __getattr__(name):

@@ -1,7 +1,7 @@
 """Hit grouping, CALL emission, and OTU accounting.
 
 Faithful re-expression of the reference's sequential state machine:
-gatherHits (/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:457-514),
+gatherHits (KmerGutsJava.java:457-514),
 processSetOfHits (:385-455), tabulateOtuDataForContig (:516-524), and the
 per-sequence drivers processAASeq (:526-536) / processSeq (:538-558).
 

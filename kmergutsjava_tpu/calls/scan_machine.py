@@ -1,11 +1,11 @@
 """The gatherHits state machine as a jitted lax.scan (device-side calls).
 
-TPU-native formulation of the reference's sequential per-container loop
-(gatherHits/processSetOfHits, /root/reference/lib/src/kmergutsjava/
-KmerGutsJava.java:457-514, :385-455): the per-hit control flow becomes a
-`lax.scan` with a bounded state vector, vmapped over a batch of padded
-containers, so hit-run detection and function voting run as one device
-dispatch ("scanned segment-reduce" in the north-star phrasing).
+Device formulation of the reference's sequential per-container loop
+(gatherHits/processSetOfHits, KmerGutsJava.java:457-514, :385-455): the
+per-hit control flow becomes a `lax.scan` with a bounded state vector,
+vmapped over a batch of padded containers, so hit-run detection and
+function voting run as one device dispatch ("scanned segment-reduce" in
+the north-star phrasing).
 
 Key observation making the state bounded: processSetOfHits needs only
 aggregates of the current list — the count/weight/last-position of

@@ -1,10 +1,10 @@
 """Command-line driver.
 
-Covers the reference CLI surface (ref /root/reference/lib/src/kmergutsjava/
-KmerGutsJava.java:560-654) with the same single-char flags, fixed rather than
-bug-compatible: -t/-l actually work (the reference's switch falls through,
-ref :605-610) and omitting -q really reads stdin (the reference NPEs,
-ref :647). TPU-native extensions use long flags.
+Covers the reference CLI surface (ref KmerGutsJava.java:560-654) with the
+same single-char flags, fixed rather than bug-compatible: -t/-l actually
+work (the reference's switch falls through, ref :605-610) and omitting -q
+really reads stdin (the reference NPEs, ref :647). Device extensions use
+long flags.
 
 Usage: python -m kmergutsjava_tpu.cli [options] -D DataDir
 """
@@ -13,7 +13,7 @@ from __future__ import annotations
 import sys
 from typing import List, Optional
 
-from .config import EngineConfig
+from .config import BACKENDS, EngineConfig
 
 USAGE = """Usage: kmer_guts [options] -D DataDir
 Arguments:
@@ -28,7 +28,7 @@ Arguments:
  -o - (optional) output file (STDOUT if not defined)
  -t - (optional) temporary directory (system one is used by default)
  -l - (optional) limit for input Kmer array (long, default = 20,000,000)
- --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density), xla, stream, spmd (fused device prepare+lookup), replicated, sharded, routed, pallas, parity
+ --backend NAME - (optional) lookup backend: auto (default: stream vs xla by density), xla, stream, spmd (fused device prepare+lookup), replicated, sharded, routed, parity
  --probe-window N - (optional) override table-derived probe window
  --chunk N - (optional) queries per device dispatch (default 524288)
  --prepare IMPL - (optional) encode impl: native (default), numpy, jax
@@ -37,7 +37,7 @@ Arguments:
  --sort-chunks 0|1 - (optional) force home-sorting of probe chunks (default: auto)
  --device-sort - (optional) run the chunk home-sort on-device
  --threads N - (optional) native host-stage threads (default: all cores; also env KMER_NATIVE_THREADS)
- --platform NAME - (optional) jax platform for the device stages, e.g. tpu or cpu (default: jax's pick)
+ --platform NAME - (optional) jax platform for the device stages, e.g. cuda or cpu (default: jax's pick)
  --profile DIR - (optional) write a jax.profiler trace of the run
  --checkpoint FILE - (optional) restartable run: commit progress to FILE after every batch and resume from it on restart (requires -q and -o, refuses -d; output is byte-identical to a single run)
  --checkpoint-every N - (optional) sequences per committed batch (default 100000)
@@ -62,6 +62,9 @@ def parse_args(argv: List[str]):
             name = param[2:]
             if name == "backend":
                 cfg.backend = params.pop(0)
+                if cfg.backend not in BACKENDS:
+                    raise ValueError(f"unknown backend {cfg.backend!r}; "
+                                     f"expected one of {', '.join(BACKENDS)}")
             elif name == "probe-window":
                 cfg.probe_window = int(params.pop(0))
             elif name == "chunk":
@@ -126,6 +129,9 @@ def parse_args(argv: List[str]):
             raise ValueError("Unknown parameter: -" + name)
     if data_dir is None:
         raise ValueError("-D parameter is required")
+    from .lookup.xla import env_probe_impl
+
+    env_probe_impl()  # a misspelt KMER_PROBE_IMPL is a usage error
     if ckpt is not None:
         if query is None or output is None:
             raise ValueError("--checkpoint requires -q FILE and -o FILE "
@@ -170,6 +176,9 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 2
     if platform is not None:
         _apply_platform(platform)
+    from . import enable_compile_cache
+
+    enable_compile_cache()
     if n_threads is not None:
         import os
 

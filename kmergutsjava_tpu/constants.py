@@ -1,10 +1,10 @@
 """Core constants and lookup tables for the signature-k-mer engine.
 
 Semantics mirror the reference engine's constant block
-(/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:84-99) and its
+(KmerGutsJava.java:84-99) and its
 character-classification helpers (:111-318), re-expressed as dense uint8
 lookup tables so that every per-character branch in the reference becomes a
-single vectorized gather on TPU.
+single vectorized gather.
 """
 from __future__ import annotations
 
@@ -117,7 +117,7 @@ CODON_AA_OFF = AA_OFF_LUT[GENETIC_CODE]
 # :274-292): value = sum(offset[i] * 20^(K-1-i)).
 POW20 = (20 ** np.arange(K - 1, -1, -1, dtype=np.int64))
 
-# 32-bit split of a k-mer value for TPU kernels that avoid int64:
+# 32-bit split of a k-mer value for device code that avoids int64:
 # value = hi * 2^KMER_LO_BITS + lo, hi < 2^15, lo < 2^20.
 KMER_LO_BITS = 20
 KMER_LO_MASK = (1 << KMER_LO_BITS) - 1

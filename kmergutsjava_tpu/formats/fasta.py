@@ -1,6 +1,6 @@
 """Streaming FASTA reader with reference-identical semantics.
 
-Replicates readFasta (/root/reference/lib/src/kmergutsjava/KmerGutsJava.java
+Replicates readFasta (KmerGutsJava.java
 :1132-1192) exactly, including its quirks:
 
 - while seeking a caption, any line whose *trimmed* length is <= 1 is silently

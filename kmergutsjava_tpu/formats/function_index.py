@@ -1,6 +1,6 @@
 """function.index reader/writer.
 
-Format (ref /root/reference/lib/src/kmergutsjava/KmerGutsJava.java:345-373):
+Format (ref KmerGutsJava.java:345-373):
 one line per function, ``<index>\t<name>``, indices dense and in order from 0.
 The name is everything after the FIRST tab (may itself contain tabs).
 Transparent .gz handled via the shared opener.

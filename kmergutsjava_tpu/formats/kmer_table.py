@@ -1,7 +1,7 @@
 """Signature k-mer table: binary format reader, writer, and builder.
 
 Binary layout (consumed by the reference at
-/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:924-942 header and
+KmerGutsJava.java:924-942 header and
 :995-999 slots):
 
     header: int64le numSigs | int64le entrySize(=24) | int64le version

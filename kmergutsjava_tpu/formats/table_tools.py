@@ -1,7 +1,7 @@
 """Utilities to create signature tables from sequence data.
 
 The reference repo ships no table builder (its data directory is external,
-ref /root/reference/data/README.md), but every test and deployment needs one.
+the reference's data/README.md), but every test and deployment needs one.
 These helpers derive a signature set from annotated proteins and write a
 data directory (kmer.table.mem_map + function.index) the engine — and the
 reference Java engine — can consume.

@@ -1,8 +1,8 @@
 """Exact emulation of the reference's streaming merge-join lookup.
 
 This is the parity oracle: a faithful re-implementation of the reference's
-forward-only single-pass scan (lookup, /root/reference/lib/src/kmergutsjava/
-KmerGutsJava.java:944-1034), including its edge semantics:
+forward-only single-pass scan (lookup, KmerGutsJava.java:944-1034),
+including its edge semantics:
 
 - queries are consumed in ascending (home, value) order, where
   home = value % numSigs (comparator, ref :1082-1094);

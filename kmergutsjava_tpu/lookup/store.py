@@ -1,7 +1,7 @@
 """Out-of-core query k-mer store: bounded-RAM accumulate, spill, merge.
 
-TPU-native counterpart of the reference's external merge sort
-(createKmerStorage, /root/reference/lib/src/kmergutsjava/KmerGutsJava.java
+Counterpart of the reference's external merge sort
+(createKmerStorage, KmerGutsJava.java
 :822-889; spill/merge :656-740): query k-mers accumulate in RAM up to
 ``input_size_limit``; overflow chunks are sorted by (home, value) — the
 reference's comparator (ref :1082-1094) — and spilled as binary files; a

@@ -1,7 +1,7 @@
-"""Vectorized probe-window lookup (jitted XLA; runs on TPU and CPU).
+"""Vectorized probe-window lookup (jitted XLA).
 
-TPU-native reformulation of the reference's streaming merge-join (lookup,
-/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:944-1034). Instead of
+Vectorized reformulation of the reference's streaming merge-join (lookup,
+KmerGutsJava.java:944-1034). Instead of
 a sequential scan with an in-flight probe set, every query probes a window of
 consecutive slots in parallel, two-pass:
 
@@ -47,6 +47,22 @@ FP_MOD = 65535
 FP_EMPTY = 65535
 
 
+# sparse probe layouts (XlaLookup probe_impl; env KMER_PROBE_IMPL)
+PROBE_IMPLS = ("auto", "rows1", "chunked", "rows", "flat")
+
+
+def env_probe_impl() -> str:
+    """The KMER_PROBE_IMPL override ("auto" when unset); raises ValueError
+    on a name that is not in PROBE_IMPLS."""
+    import os
+
+    impl = os.environ.get("KMER_PROBE_IMPL", "auto")
+    if impl not in PROBE_IMPLS:
+        raise ValueError(f"KMER_PROBE_IMPL={impl!r}: expected one of "
+                         f"{', '.join(PROBE_IMPLS)}")
+    return impl
+
+
 def _round_up_pow2(x: int) -> int:
     p = 1
     while p < x:
@@ -59,12 +75,10 @@ def _first_event(win, q_fp, rel, in_window, probe_window):
     is either a fingerprint CANDIDATE (verify host-side) or EMPTY (probing
     stops — definitive miss if no candidate came first) decides the query.
 
-    ONE masked min over key = rel*2 + (0 candidate | 1 empty) replaces the
-    former two-reduction has_cand/empty_any form — fewer reduction passes
-    per probe (round-2 sweeps measured 1.8x, though their absolute rates
-    were later found hoisting-inflated; the single-reduction form stands
-    on op count). A slot cannot be both (q_fp < FP_MOD = FP_EMPTY), so
-    the parity tie never happens.
+    ONE masked min over key = rel*2 + (0 candidate | 1 empty) replaces a
+    two-reduction has_cand/empty_any form: one reduction pass per probe.
+    A slot cannot be both (q_fp < FP_MOD = FP_EMPTY), so the parity tie
+    never happens.
 
     Returns (off_u8, state_u8): state 1 = candidate at ``off`` (bit 2 is
     NO LONGER set when an empty follows the candidate — every consumer
@@ -112,14 +126,11 @@ def probe_fingerprint_rows(
 ):
     """Row-gather fingerprint probe.
 
-    TPU XLA cannot vectorize gathers from a 1-D operand (measured ~6M
-    lookups/s on-chip regardless of plane size — scalar-gather bound, see
-    docs/performance.md). Gathers of whole 128-lane ROWS from a 2-D operand
-    do vectorize, and a probe window of W <= 128 always lies within two
-    consecutive rows, so: gather rows home>>7 and home>>7 + 1, then select
-    the window with pure lane arithmetic. Reads 512 B/query instead of
-    2W B, but rides the fast gather path. Same (off, state) contract as
-    probe_fingerprint_pass.
+    Gathers whole 128-lane ROWS from a 2-D operand: a probe window of
+    W <= 128 always lies within two consecutive rows, so gather rows
+    home>>7 and home>>7 + 1, then select the window with pure lane
+    arithmetic. Reads 512 B/query instead of 2W B, as two contiguous row
+    loads. Same (off, state) contract as probe_fingerprint_pass.
     """
     assert probe_window <= 128
     r = jax.lax.shift_right_logical(homes, jnp.int32(7))
@@ -150,15 +161,10 @@ def probe_fingerprint_rows1(
     < stride, so o + probe_window <= L): one gather per query, for a
     storage factor of L/stride.
 
-    Lane width L comes from the plane's shape; 128 is the production
-    default at every window size. (Round-3 correction: the round-2
-    "narrow rows win" measurements held homes loop-invariant and XLA
-    hoisted the small narrow gather out of the timing loop; honest
-    per-rep home variation measures 128 lanes AHEAD of 32/64 at every
-    plane size — 270M vs 270M at 13MB, 129M vs 74M at 512MB,
-    scripts/sweep_fuse3.py. KMER_PROBE_LANES still overrides; narrow
-    planes are not lane-padded in HBM.)
-    Same (off, state) contract as probe_fingerprint_pass.
+    Lane width L comes from the plane's shape; 128 is the default at
+    every window size (KMER_PROBE_LANES overrides). Each query's window is
+    one contiguous 256-byte row load. Same (off, state) contract as
+    probe_fingerprint_pass.
     """
     lanes = tbl_fp2d.shape[1]
     assert 0 < stride <= lanes - probe_window
@@ -178,23 +184,18 @@ def probe_fingerprint_chunk_bins(
     off_b: jax.Array,  # [C, cap] uint8 in-row offset (home - row*stride)
     probe_window: int,
 ):
-    """Chunk-local row-gather probe for HBM-bound planes.
+    """Chunk-local row-gather probe for large planes.
 
-    Measured on TPU v5e (scripts/sweep_sparse.py): XLA's vectorized row
-    gather runs ~206-227M lookups/s while the gathered-from operand is
-    <= ~64MB and collapses to ~112M/s on >= 256MB planes, independent of
-    element dtype — the limit is the operand (index-range) size, not the
-    bytes.  So the overlapped rows1 plane is reshaped into C chunks of
+    The overlapped rows1 plane is reshaped into C chunks of
     ``chunk_rows`` rows (a window never straddles rows, hence never
     chunks) and a lax.scan visits each chunk, gathering that chunk's
-    queries from the small [chunk_rows, 128] slice at the fast rate.
+    queries from the small [chunk_rows, 128] slice, so every gather's
+    operand stays small and its rows local.
 
     Queries are routed to per-chunk capacity bins ON THE HOST
-    (XlaLookup._bin_queries: a uint8-key radix argsort + one record
-    gather, ~16M queries/s single-thread, overlapped with device work by
-    the dispatch worker): an on-device routing variant (sort_key_val +
-    searchsorted + scatter) measured 11M lookups/s end-to-end — XLA's TPU
-    sort/scatter lowering erased the gather win 20x over.
+    (XlaLookup._bin_queries: a threaded native two-pass binner, or a
+    uint8-key radix argsort + one record gather), overlapped with device
+    work by the dispatch worker.
 
     Returns per-bin-cell (off, state) with the probe_fingerprint_pass
     contract; cells the host left empty return garbage the host never
@@ -244,9 +245,8 @@ def probe_fingerprint_pass_sorted(
 ):
     """Fingerprint pass with a device-side home sort around the gather.
 
-    Sorting queries by home turns the plane gather from random HBM reads
-    into near-sequential ones (3-5x on HBM-bound planes, see
-    docs/performance.md) without burning feeder-thread CPU on a host
+    Sorting queries by home turns the plane gather from random reads
+    into near-sequential ones without burning feeder-thread CPU on a host
     argsort. Outputs are scattered back to the caller's order, so this is
     a drop-in replacement for probe_fingerprint_pass.
     """
@@ -331,7 +331,7 @@ class XlaLookup:
     int64 plane, fully on device.
     """
 
-    DEFAULT_CHUNK = 1 << 19  # per-dispatch queries (non-tilejoin impls)
+    DEFAULT_CHUNK = 1 << 19  # per-dispatch queries
 
     def __init__(self, table: KmerTable, probe_window: Optional[int] = None,
                  chunk: Optional[int] = None, device=None,
@@ -345,9 +345,6 @@ class XlaLookup:
         kernel's exact-fallback helper."""
         import os
 
-        from .. import enable_compile_cache
-
-        enable_compile_cache()
         if table.max_probe is None:
             table.compute_max_probe()
         self.table = table
@@ -393,42 +390,23 @@ class XlaLookup:
         # probe_impl "rows1" (default for small planes): ONE gather of a
         # whole 128-lane row per query from an OVERLAPPED plane (row r =
         # slots [r*stride, r*stride+128), stride = 128 - w1) — every window
-        # fits in one row. "chunked" (default for HBM-large planes): the
-        # same overlapped plane reshaped into ~4MB chunks, queries routed
-        # to their home chunk on device and gathered chunk-locally — the
-        # vectorized row gather runs ~2x faster when the gathered-from
-        # operand stays <= ~64MB (measured, scripts/sweep_sparse.py; see
-        # docs/performance.md). "tilejoin" (default for HBM-large planes
-        # on TPUs whose Mosaic compiles it, round-4): the same overlapped
-        # plane viewed as [T, 128, 128] tiles, queries host-binned by
-        # tile, a Pallas kernel DMAs only the used tiles and resolves
-        # in-VMEM via an exact MXU one-hot row extract — no XLA dynamic
-        # gather on the critical path (lookup/pallas_tilejoin.py).
+        # fits in one row. "chunked" (forced only): the same overlapped
+        # plane reshaped into ~4MB chunks, queries host-binned to their
+        # home chunk and gathered chunk-locally by a lax.scan.
         # "rows": two-row gather of a plain [R, 128] plane (windows may
         # straddle rows) — the fallback when w1 or the overlap storage
-        # factor is too big. "flat": classic [N, W] 1-D gather (TPU XLA
-        # runs 1-D-operand gathers scalar — CPU/debug only).
+        # factor is too big. "flat": classic [N, W] 1-D gather (w1 > 128).
         if probe_impl is None:
-            probe_impl = os.environ.get("KMER_PROBE_IMPL", "auto")
-        auto_impl = probe_impl == "auto"
-        if auto_impl:
+            probe_impl = env_probe_impl()
+        elif probe_impl not in PROBE_IMPLS:
+            raise ValueError(f"unknown probe impl {probe_impl!r}")
+        if probe_impl == "auto":
             probe_impl = "rows1"
         lanes = 128
-        if probe_impl in ("rows1", "chunked", "tilejoin"):
+        if probe_impl in ("rows1", "chunked"):
             budget = int(os.environ.get("KMER_ROWS1_MAX_BYTES", 4 << 30))
             if probe_impl == "rows1":
-                # Lane width: 128 (round-3 correction). Round 2 believed
-                # narrow ~2*w1 lanes ran 2-4x faster at every plane size
-                # (537-546M/s), but those sweeps held HOMES loop-invariant
-                # across reps, letting XLA hoist the (small) narrow
-                # gather out of the timing loop — only the compare was
-                # timed. With per-iteration home variation
-                # (scripts/sweep_fuse3.py) the honest u16 ladder is:
-                # 13MB plane 270M/s (32 lanes) vs 268M (128); 512MB plane
-                # 74M (32) vs 129M (128) — narrow is never better and
-                # clearly worse HBM-large, so 128 is the default and the
-                # chunked scan returns to the auto path for large planes.
-                # KMER_PROBE_LANES still overrides for experiments.
+                # lane width: 128 unless KMER_PROBE_LANES overrides
                 lanes = int(os.environ.get("KMER_PROBE_LANES", 0)) or 128
                 # A lanes override <= w1 leaves no probe stride (the
                 # budget loop would divide by zero at lanes == w1); every
@@ -443,7 +421,7 @@ class XlaLookup:
                 probe_impl = "rows"  # w1 > 64 or overlap too costly
         if self.w1 > 128 and probe_impl == "rows":
             probe_impl = "flat"
-        if probe_impl in ("rows1", "chunked", "tilejoin"):
+        if probe_impl in ("rows1", "chunked"):
             self.stride = lanes - self.w1
             self.lanes = lanes
             nrows = -(-(plane_len - lanes) // self.stride) + 1
@@ -453,113 +431,14 @@ class XlaLookup:
                     [fp, np.full(ext - plane_len, FP_EMPTY, np.uint16)])
             fp2d = np.ascontiguousarray(np.lib.stride_tricks.as_strided(
                 fp, shape=(nrows, lanes), strides=(2 * self.stride, 2)))
-            chunked_min = int(os.environ.get("KMER_CHUNKED_MIN_BYTES",
-                                             96 << 20))
-            # tile-join arm threshold (round 5): the kernel is
-            # plane-size INDEPENDENT (2.5-3.4B cells/s measured at 13MB
-            # and 512MB alike), so it also beats the rows1 gather
-            # (270M/s) on mid-size planes — the gate drops to 24MB
-            # (>= ~780 tiles, where the density-aware chunk still keeps
-            # bins well-filled); micro-planes stay on rows1, where
-            # executable variety and bin overheads would dominate.
-            tilejoin_min = int(os.environ.get("KMER_TILEJOIN_MIN_BYTES",
-                                              24 << 20))
-            if (auto_impl and lanes == 128 and fp2d.nbytes >= tilejoin_min):
-                # a TPU whose Mosaic compiles the tile-join kernel: the
-                # manual-DMA merge join replaces the XLA gather ladder
-                # (rounds 4-5; 3.4B cells/s vs chunked's 245M/s at
-                # 512MB, scripts/sweep.py tilejoin).
-                from .pallas_tilejoin import tilejoin_supported
-
-                if tilejoin_supported():
-                    probe_impl = "tilejoin"
-            if probe_impl == "tilejoin":
-                # Pallas tile-join (lookup/pallas_tilejoin.py): the same
-                # overlapped plane viewed as [T, 128, 128] transposed
-                # tiles; queries are host-binned by home super-tile, the
-                # kernel DMAs only the used super-tiles. Trim the pow2
-                # padding to the rows homes can land in (untouched tiles
-                # are simply never in the grid). The kernel streams the
-                # used plane per dispatch, so its economy scales with
-                # queries per pass: dispatch chunks are raised to the
-                # density where the DMA'd bytes per query drop well
-                # under the gather paths' 256 (KMER_TILEJOIN_CHUNK).
-                from .pallas_tilejoin import (TILE_ROWS, TPG, plane_tiles,
-                                              tilejoin_form)
-
-                occ_rows = (s - 1) // self.stride + 1
-                self._occ_tiles = -(-occ_rows // TILE_ROWS)
-                self._tj_interpret = jax.default_backend() != "tpu"
-                # kernel form: probed best on TPU ("mxu" the guaranteed-
-                # compile fallback); interpret mode runs the gather form
-                # unless KMER_TJ_FORM overrides
-                self._tj_form = (
-                    os.environ.get("KMER_TJ_FORM", "gather")
-                    if self._tj_interpret else (tilejoin_form() or "mxu"))
-                # subclasses (parallel/tilejoin_shards.py) pad the tile
-                # count further so super-tiles split evenly over shards
-                mult = getattr(self, "TJ_TILES_MULTIPLE", 1)
-                tiles = plane_tiles(fp2d[:occ_rows], tpg=TPG * mult,
-                                    form=self._tj_form)
-                self.n_tiles = len(tiles)
-                self.tbl_fp = self._place_tj_plane(tiles, put)
-                self.probe_impl = probe_impl
-                self.tbl_kmer = put(self.host_kmer) if not use_fingerprint \
-                    else None
-                # Density-aware default (round 5): the quantile bin cap
-                # (_select_tile_cap) turns queries-per-tile straight into
-                # fill — at ~500/tile the cap lands on 512 with ~95% fill
-                # and <1% overflow, which multiplies into the production
-                # (derated) rate; sparser dispatches also pay more DMA'd
-                # plane bytes per query. So the default chunk scales with
-                # the tile count, clamped to [4M, 16M] (the upper bound
-                # caps host bin memory at ~70MB/dispatch and keeps >= 2
-                # dispatches in flight). Only the default (chunk=None) is
-                # raised — an explicit caller chunk (tests, tuned
-                # deployments) is respected as passed, including the
-                # non-tilejoin default value.
-                env_chunk = os.environ.get("KMER_TILEJOIN_CHUNK")
-                if chunk is not None:
-                    self.chunk = chunk
-                elif env_chunk:
-                    self.chunk = int(env_chunk)
-                else:
-                    # the 4M floor amortizes per-dispatch costs on big
-                    # planes, but on mid-size planes it would push the
-                    # per-tile mean far past the 4096 cap ceiling
-                    # (mass overflow to the host pass) — so the floor
-                    # itself is density-capped per tile. Unbanded forms
-                    # target ~500/tile (cap lands on 512, fill ~95-98%)
-                    # with the floor at ~1000/tile; the banded form
-                    # ("gather2b") targets ~900/tile — cap 1024 at 8
-                    # bands, per-BAND fill ~88% with ~0.3% overflow (the
-                    # band split raises the relative Poisson variance:
-                    # at 950/tile the per-band overflow sits right AT
-                    # the 1% budget and the quantile cap can tip to
-                    # 2048, halving fill — 900 keeps a solid margin) —
-                    # with the floor at ~1800/tile (cap 2048, same
-                    # per-band economics).
-                    if self._tj_form == "gather2b":
-                        target, fcap = 900, 1800
-                    else:
-                        target, fcap = 500, 1000
-                    floor = min(4 << 20, fcap * self.n_tiles)
-                    self.chunk = min(max(target * self.n_tiles, floor),
-                                     16 << 20)
-                return
-            # chunk the plane when forced, or when the 128-lane plane is
-            # HBM-large (auto): the row gather slows ~2x once the operand
-            # passes ~the 64-256MB cliff, and the chunked scan keeps each
-            # gather operand at 4MB (honest numbers, round 3:
-            # scripts/sweep_fuse4.py)
+            # chunk the plane only when forced: auto keeps rows1 at every
+            # plane size (on an NVIDIA H100 80GB HBM3 at 700 W, rows1 was
+            # not slower than chunked on an 83.3M-slot plane; CHANGES.md)
             # (<= 32768 rows: the bin wire format carries local rows as u16)
             self.chunk_rows = min(
                 int(os.environ.get("KMER_CHUNK_ROWS", 16384)), 32768)
-            chunked_min = int(os.environ.get("KMER_CHUNKED_MIN_BYTES",
-                                             96 << 20))
             occ_rows = (s - 1) // self.stride + 1  # rows homes can land in
-            if probe_impl == "chunked" or (auto_impl and lanes == 128
-                                           and fp2d.nbytes >= chunked_min):
+            if probe_impl == "chunked":
                 if occ_rows > self.chunk_rows:
                     probe_impl = "chunked"
                     # trim the pow2 plane padding: the scan visits every
@@ -593,10 +472,6 @@ class XlaLookup:
         self.tbl_kmer = put(self.host_kmer) if not use_fingerprint else None
         self.chunk = chunk if chunk is not None else self.DEFAULT_CHUNK
 
-    def _place_tj_plane(self, tiles: np.ndarray, put):
-        """Device placement of the tile-join plane; subclasses shard it."""
-        return put(tiles)
-
     @staticmethod
     def _adaptive_w1(table: KmerTable, floor: int) -> int:
         """Pick the pass-1 window so that fully-occupied windows (which
@@ -620,83 +495,6 @@ class XlaLookup:
                 break
             w *= 2
         return w
-
-    def _tile_cap(self, n: int) -> int:
-        """Conservative per-tile bin capacity for the tile-join kernel:
-        mean + 8 sigma (Poisson-ish for hash-uniform homes) + slack,
-        rounded UP to 128 (the kernel's packed-lane group width). Static
-        per (bucketed n, table); overflow ~never happens. Kept as the
-        ceiling for (and legacy alternative to) _select_tile_cap."""
-        mean = n / self._occ_tiles
-        cap = int(mean + 8 * mean ** 0.5 + 72)
-        # 4096 ceiling bounds the kernel's static unroll (cap/128 groups
-        # per sub-tile); past it the overflow tail goes to the exact pass
-        return min(-(-cap // 128) * 128, max(128, -(-n // 128) * 128), 4096)
-
-    def _select_tile_cap(self, homes: np.ndarray, n: int, nb: int) -> int:
-        """Per-dispatch tile-join bin capacity (round 5). Default
-        ("quantile"): histogram the ACTUAL per-tile counts of this batch
-        and take the smallest multiple of 128 whose overflow — queries
-        with rank >= cap in their tile, which the resolver already routes
-        to the exact host full-window pass — stays under
-        KMER_TILEJOIN_OVERFLOW (default 1%) of the batch. The round-4
-        mean+8sigma sizing made overflow ~impossible but padded bins to
-        ~2.1x the query count at bench geometry (fill 48%); paying a
-        <=1% host-pass tail buys fill ~95%, which multiplies straight
-        into the production (derated) lookup rate. The chosen cap is
-        sticky-monotone across dispatches so a steady streaming workload
-        compiles ONE kernel executable (the smaller tail chunk reuses
-        it). KMER_TILEJOIN_CAP forces a fixed cap;
-        KMER_TILEJOIN_CAP_MODE=legacy restores the round-4 sizing."""
-        import os
-
-        cap_env = os.environ.get("KMER_TILEJOIN_CAP")
-        if cap_env:
-            return min(max(128, -(-int(cap_env) // 128) * 128), 4096)
-        if os.environ.get("KMER_TILEJOIN_CAP_MODE") == "legacy":
-            return self._tile_cap(nb)
-        budget = float(os.environ.get("KMER_TILEJOIN_OVERFLOW",
-                                      0.01)) * n
-        ceil_cap = self._tile_cap(nb)
-        if getattr(self, "_tj_form", None) == "gather2b":
-            # banded form: overflow happens per (tile, BAND) — histogram
-            # once at 8-band granularity and let the shared helper walk
-            # the banded cap ladder (pallas_tilejoin.banded_quantile_cap)
-            from .pallas_tilejoin import banded_quantile_cap
-
-            h64 = homes.astype(np.int64)
-            r = h64 // self.stride
-            bw8 = -(-self.stride // 8)
-            counts8 = np.bincount(
-                ((r >> 7) << 3) + (h64 - r * self.stride) // bw8,
-                minlength=self._occ_tiles * 8).reshape(-1, 8)
-            cap = banded_quantile_cap(counts8, budget, ceil_cap, self.w1)
-        else:
-            counts = np.bincount(
-                (homes.astype(np.int64) // self.stride) >> 7,
-                minlength=self._occ_tiles)
-            cap = 128
-            while cap < ceil_cap:
-                big = counts[counts > cap]
-                if big.size == 0 or float((big - cap).sum()) <= budget:
-                    break
-                cap += 128
-        sticky = getattr(self, "_cap_sticky", 0)
-        if sticky >= cap:
-            return sticky
-        self._cap_sticky = cap
-        return cap
-
-    def _tj_bands(self, cap: int) -> int:
-        """Band count for the tile-join bins: the banded kernel form
-        partitions each tile's cells by home-offset band (band_geometry —
-        the binners MUST use the same split the kernel assumes); every
-        other form uses the flat per-tile layout."""
-        if getattr(self, "_tj_form", None) == "gather2b":
-            from .pallas_tilejoin import band_geometry
-
-            return band_geometry(self.w1, cap // 128)[0]
-        return 1
 
     def _chunk_cap(self, n: int) -> int:
         """Per-chunk bin capacity for the chunked probe: mean + 8 sigma
@@ -762,32 +560,6 @@ class XlaLookup:
         (power-of-two buckets so distinct sizes reuse executables) and,
         for the chunked impl, the host-side bin routing."""
         n = len(homes)
-        if self.probe_impl == "tilejoin":
-            from .pallas_tilejoin import (TPG, bin_queries_tiles,
-                                          bin_queries_tiles_dense,
-                                          tilejoin_probe)
-
-            nb = n if n == self.chunk else max(_round_up_pow2(n), 4096)
-            cap = self._select_tile_cap(homes, n, nb)
-            nbands = self._tj_bands(cap)
-            if n >= 2 * self.n_tiles:
-                # dense load: bins over ALL super-tiles (threaded native
-                # binner when built, numpy expansion otherwise) — at
-                # this density most tiles are touched anyway, and the
-                # static grid means ONE executable per (cap, table)
-                # instead of one per used-super-count bucket
-                res = bin_queries_tiles_dense(q_fp, homes, self.stride,
-                                              cap, self.n_tiles,
-                                              n_bands=nbands)
-            else:
-                res = bin_queries_tiles(q_fp, homes, self.stride, cap,
-                                        pad_blocks_to=64, n_bands=nbands)
-            ids, packed_b, block_of, rank_of = res
-            out = tilejoin_probe(
-                self.tbl_fp, jnp.asarray(ids), jnp.asarray(packed_b),
-                self.w1, cap // 128, form=self._tj_form,
-                interpret=self._tj_interpret)
-            return ("tiles", out, block_of, rank_of, cap * TPG, n)
         if self.probe_impl == "chunked":
             nb = n if n == self.chunk else max(_round_up_pow2(n), 4096)
             cap = self._chunk_cap(nb)
@@ -810,18 +582,6 @@ class XlaLookup:
         """Fetch one dispatch_probe result -> (off, state) numpy arrays in
         the caller's query order (state 0 = unresolved -> exact host
         pass)."""
-        if pending[0] == "tiles":
-            from .pallas_tilejoin import TPG, decode_fst, unpack_fst
-
-            _, out, block_of, rank_of, cells, n = pending
-            fst = unpack_fst(jax.device_get(out), cells // TPG)
-            ok = rank_of < cells  # overflow carries the sentinel = cells
-            if ok.all():
-                return decode_fst(fst[block_of, rank_of], self.w1)
-            rc = np.minimum(rank_of, cells - 1)
-            off, state = decode_fst(fst[block_of, rc], self.w1)
-            return (np.where(ok, off, 0).astype(np.uint8),
-                    np.where(ok, state, 0).astype(np.uint8))
         if pending[0] == "bins":
             _, out, chunk_of, rank_of, cap, n = pending
             off_bh, st_bh = jax.device_get(out)
@@ -880,9 +640,8 @@ class XlaLookup:
         columns: fingerprint-candidate verification against the full
         k-mer values, the exact full-window pass for the unresolved tail
         (incl. bin-overflow queries), and hit compaction. This is the
-        host roofline's TOP stage (bench.py host_verify_compact measured
-        it at ~60% of per-query host cost, round-5 verdict item 7), so
-        it gets the native slice-parallel treatment
+        largest per-query host stage, so it gets the native
+        slice-parallel treatment
         (native/scatter.cpp gather_resolve_slots + emit_hits); the numpy
         twin below is bit-identical (pinned by tests/test_lookup.py).
 
@@ -945,8 +704,7 @@ class XlaLookup:
     def _host_full_window(self, values, homes, todo):
         """Exact full-window probe on the host k-mer array (for unresolved
         queries). W flat gathers instead of one [N, W] advanced-index
-        gather: the latter materializes N*W int64 temporaries and measured
-        ~6x slower at metagenome scales (30s vs 5s for 6.7M x 32)."""
+        gather: the latter materializes N*W int64 temporaries."""
         idx = homes[todo].astype(np.int64)
         v = values[todo]
         found = np.zeros(len(idx), dtype=bool)
@@ -1076,13 +834,11 @@ class StreamingLookup:
             if os.environ.get("KMER_SORT_CHUNKS") in ("0", "1"):
                 sort_chunks = os.environ["KMER_SORT_CHUNKS"] == "1"
             else:
-                # chunk-local home sort coalesces HBM-bound gathers — for
-                # the two-row layouts only: the overlapped rows1 gather
-                # measured locality-independent (sorted == random at a
-                # 122MB plane, docs/performance.md), so sorting is wasted
-                # feeder CPU there; the chunked probe sorts on device
-                sort_chunks = (lk.probe_impl not in ("rows1", "chunked",
-                                                     "tilejoin")
+                # chunk-local home sort coalesces the gathers of the
+                # two-row layouts only: an overlapped rows1 window is one
+                # contiguous row load whatever the order, and the chunked
+                # probe bins its queries by chunk already
+                sort_chunks = (lk.probe_impl not in ("rows1", "chunked")
                                and lk.num_sigs * 2 > 32 * 1024 * 1024)
         self.sort_chunks = sort_chunks
         if device_sort is None:

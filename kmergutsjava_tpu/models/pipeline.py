@@ -1,10 +1,10 @@
-"""End-to-end annotation engine (the reference's run(), re-phased for TPU).
+"""End-to-end annotation engine (the reference's run(), re-phased).
 
 Three phases with wall-clock info lines, mirroring
-/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:742-820:
+KmerGutsJava.java:742-820:
 
 1. prepare  — FASTA -> device-batched encode/translate/kmerize -> query store
-2. lookup   — probe the signature table (parity | xla | pallas backend)
+2. lookup   — probe the signature table (parity | xla | stream | ... backend)
 3. group    — sequential call state machine -> report text
 
 Report text is bit-identical to the reference in non-debug mode; info lines
@@ -40,13 +40,15 @@ from .prepare import Prepared, prepare_aa, prepare_dna
 # the warm state.
 _LOOKUP_CACHE: Dict[tuple, object] = {}
 
-# Backend-'auto' density crossover: the stream kernel wins when the query
-# count exceeds num_sigs / DENSITY_CROSSOVER (one plane pass vs per-query
-# gathers; measured on v5e, docs/performance.md). Round 2: the NARROW-lane
-# rows1 layout lifted the sparse rate to ~540M/s at every plane size
-# (scripts/sweep_narrow.py), so the stream pass (4*numSigs/4.2B s)
-# amortizes only at ~numSigs * 540e6 * 4 / 4.2e9 ~ numSigs/2 queries;
-# 2.5 keeps a small margin for host-stage overheads on the stream side.
+# Backend-'auto' density crossover: the stream probe (one plane pass) is
+# chosen over per-query gathers when the query count exceeds
+# num_sigs / DENSITY_CROSSOVER. On one NVIDIA H100 80GB HBM3 (700 W), with
+# an 83.3M-slot table and 50M read k-mers (0.6 per slot, the dense side
+# of this switch), the stream backend took 9.1-9.2 s wall (lookup 2.7 s)
+# and the xla backend 6.2-6.3 s wall (its probes overlap the prepare
+# phase, lookup 0.2 s): the sparse path still won there, so the crossover
+# lies at a higher density on this card. The value stands until it is
+# re-fitted over a density sweep.
 DENSITY_CROSSOVER = 2.5
 
 
@@ -58,17 +60,17 @@ def _replace_backend(cfg: EngineConfig, backend: str) -> EngineConfig:
 
 def _auto_backend(table, query: Optional[str], cfg: EngineConfig) -> str:
     """Density heuristic for backend 'auto' (both candidates are exact, so
-    a wrong guess only costs speed). The stream kernel pays one plane pass
+    a wrong guess only costs speed). The stream probe pays one plane pass
     (~channels*numSigs slot-channels) regardless of query count while the
-    row-gather path pays per query; the measured crossover is about
-    numSigs/9 queries (docs/performance.md). Query count is estimated
+    row-gather path pays per query; the switch is at
+    numSigs / DENSITY_CROSSOVER queries. Query count is estimated
     from the input size upfront: ~1 query k-mer per FASTA byte in aa mode,
     ~2 per byte for DNA (6 frames of len/3 windows, two strands), ~3.5x
     for gzip. Unknown sizes (stdin / server streams) return None — the
     caller defers the choice to _DeferredAutoFeed, which decides from the
     ACTUAL query count mid-prepare. With an explicit --mesh, the sparse
-    side routes instead (the multi-chip sparse path); the dense side
-    shards the stream kernel.
+    side routes instead (the multi-device sparse path); the dense side
+    shards the stream probe.
     """
     import os
 
@@ -93,8 +95,9 @@ class _DeferredAutoFeed:
     """Backend-'auto' front end for unknown-size inputs (stdin and server
     streams, where no upfront size estimate exists): buffers prepare
     chunks in RAM, and the moment the query count crosses the stream
-    kernel's density crossover (numSigs/DENSITY_CROSSOVER) upgrades itself in place to
-    the stream backend's incremental scatter, draining the buffer. A run
+    probe's density crossover (numSigs/DENSITY_CROSSOVER) upgrades itself
+    in place to the stream backend's incremental scatter, draining the
+    buffer. A run
     that stays below the threshold finishes on the sparse one-shot path
     instead — below the crossover the buffered queries are small by
     definition, so the buffering costs nothing either way."""
@@ -123,7 +126,7 @@ class _DeferredAutoFeed:
             self._upgrade()
 
     def _upgrade(self) -> None:
-        from ..lookup.pallas_stream import StreamingStreamLookup
+        from ..lookup.stream import StreamingStreamLookup
 
         try:
             lk = self.engine._stream_lookup(self.table, self.cfg)
@@ -200,42 +203,14 @@ def _cached_xla_lookup(table_path: str, table, cfg: EngineConfig) -> "XlaLookup"
     # so a knob change (tests force impls this way) can't serve a stale impl
     impl_env = tuple(os.environ.get(k) for k in (
         "KMER_PROBE_IMPL", "KMER_PROBE_LANES",
-        "KMER_CHUNKED_MIN_BYTES", "KMER_CHUNK_ROWS",
-        "KMER_ROWS1_MAX_BYTES", "KMER_TILEJOIN", "KMER_TILEJOIN_CHUNK",
-        "KMER_TJ_FORM", "KMER_TILEJOIN_CAP", "KMER_TILEJOIN_CAP_MODE",
-        "KMER_TILEJOIN_OVERFLOW"))
+        "KMER_CHUNK_ROWS",
+        "KMER_ROWS1_MAX_BYTES"))
     key = (ident, cfg.probe_window, cfg.lookup_chunk, cfg.mesh_shape,
            impl_env)
     lk = _LOOKUP_CACHE.get(key)
     if lk is None:
-        lk = None
-        # an explicit KMER_PROBE_IMPL naming another impl wins over the
-        # sharded-tilejoin mesh branch (the env var is part of the cache
-        # key, so honoring it keeps knob semantics consistent)
-        probe_impl_env = os.environ.get("KMER_PROBE_IMPL")
-        if cfg.mesh_shape and probe_impl_env in (None, "auto", "tilejoin"):
-            # --mesh on the xla backend: shard the sparse probe over the
-            # table axis when the tile-join geometry supports it
-            # (zero-collective super-tile sharding, round 4); other
-            # geometries keep the single-device plane (the sharded/
-            # routed backends cover them)
-            from ..lookup.pallas_tilejoin import tilejoin_supported
-
-            n = cfg.mesh_shape[0] * cfg.mesh_shape[1]
-            if n > 1 and tilejoin_supported():
-                from ..parallel.tilejoin_shards import (
-                    TileJoinShardedLookup, make_tilejoin_mesh)
-
-                try:
-                    lk = TileJoinShardedLookup(
-                        table, mesh=make_tilejoin_mesh(n),
-                        probe_window=cfg.probe_window,
-                        chunk=cfg.lookup_chunk)
-                except ValueError:  # geometry fell back
-                    lk = None
-        if lk is None:
-            lk = XlaLookup(table, probe_window=cfg.probe_window,
-                           chunk=cfg.lookup_chunk)
+        lk = XlaLookup(table, probe_window=cfg.probe_window,
+                       chunk=cfg.lookup_chunk)
         _LOOKUP_CACHE.clear()
         _LOOKUP_CACHE[key] = lk
     return lk
@@ -358,10 +333,10 @@ class Engine:
                 # degrade to the exact streaming scan instead of failing
                 store, feed, cfg = self._parity_fallback("xla", ex, cfg)
         elif cfg.backend == "stream" and not table.truncated:
-            # the dense-regime kernel's streaming front end: each prepare
+            # the dense-regime probe's streaming front end: each prepare
             # chunk scatters straight into the persistent query tiles;
-            # finish() runs one kernel pass over the whole table
-            from ..lookup.pallas_stream import StreamingStreamLookup
+            # finish() runs one probe pass over the whole table
+            from ..lookup.stream import StreamingStreamLookup
 
             try:
                 # flush_limit = the reference's inputSizeLimit (ref :108):
@@ -568,10 +543,9 @@ class Engine:
             lk = _cached_xla_lookup(self._table_path, table, cfg)
             values, cnt, pos = rec["value"], rec["cnt"], rec["pos"]
             # Home-sorted probes coalesce the device gathers of the
-            # two-row layouts (3-5x on HBM-bound tables); the rows1
-            # overlapped gather measured locality-independent, so skip
-            # the host sort there (docs/performance.md).
-            if (lk.probe_impl not in ("rows1", "tilejoin")
+            # two-row layouts; a rows1 window is one contiguous row load
+            # whatever the order, so skip the host sort there.
+            if (lk.probe_impl != "rows1"
                     and table.num_sigs * 2 > 32 * 1024 * 1024
                     and len(values) > 1):
                 order = np.argsort(values % np.int64(table.num_sigs),
@@ -580,14 +554,9 @@ class Engine:
             return lk.lookup(values, cnt, pos,
                              progress=self._progress(len(rec)),
                              compute_kmers_found=cfg.debug)
-        if cfg.backend == "pallas":
-            from ..lookup.pallas_kernel import PallasLookup
-            lk = PallasLookup(table, probe_window=cfg.probe_window,
-                              chunk=cfg.lookup_chunk)
-            return lk.lookup(rec["value"], rec["cnt"], rec["pos"])
         if cfg.backend == "stream":
-            # dense-regime Pallas kernel: the table is streamed once per
-            # batch, queries scattered into slot-major channel tiles
+            # dense-regime probe: the table is streamed once per batch,
+            # queries scattered into slot-major channel tiles
             lk = self._stream_lookup(table, cfg)
             return lk.lookup(rec["value"], rec["cnt"], rec["pos"],
                              progress=self._progress(len(rec)),
@@ -609,13 +578,18 @@ class Engine:
 
             shards = (cfg.mesh_shape[0] * cfg.mesh_shape[1]
                       if cfg.mesh_shape else len(jax.devices()))
-            rl = RoutedLookup(table, make_routed_mesh(shards),
-                              probe_window=max(16, table.max_probe or 16))
+            key = ("routed", _table_ident(self._table_path), shards)
+            rl = _LOOKUP_CACHE.get(key)
+            if rl is None:
+                rl = RoutedLookup(table, make_routed_mesh(shards),
+                                  probe_window=max(16, table.max_probe or 16))
+                _LOOKUP_CACHE.clear()
+                _LOOKUP_CACHE[key] = rl
             return rl.lookup(rec["value"], rec["cnt"], rec["pos"])
         raise ValueError(f"unknown lookup backend: {cfg.backend}")
 
     def _stream_lookup(self, table, cfg):
-        """Build (with a warm-state cache) the stream-kernel lookup; with
+        """Build (with a warm-state cache) the stream-probe lookup; with
         --mesh, plane + tiles shard by superblock range over the devices
         (the scatter already routed queries home, so zero collectives)."""
         import os
@@ -638,8 +612,8 @@ class Engine:
                                          probe_window=cfg.probe_window,
                                          chunk=cfg.lookup_chunk)
             else:
-                from ..lookup.pallas_stream import PallasStreamLookup
-                lk = PallasStreamLookup(table, probe_window=cfg.probe_window,
+                from ..lookup.stream import StreamLookup
+                lk = StreamLookup(table, probe_window=cfg.probe_window,
                                         chunk=cfg.lookup_chunk)
             _LOOKUP_CACHE.clear()
             _LOOKUP_CACHE[key] = lk

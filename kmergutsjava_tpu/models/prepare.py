@@ -1,7 +1,7 @@
 """Prepare phase: FASTA records -> query k-mer stream (device-batched).
 
-TPU-native counterpart of the reference's prepareQuery/addKmers
-(/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:1051-1074, :900-922).
+Counterpart of the reference's prepareQuery/addKmers
+(KmerGutsJava.java:1051-1074, :900-922).
 Sequences are padded into power-of-two length buckets so each distinct shape
 compiles once; encode/translate/kmerize run as jitted ops over whole batches
 and valid windows are compacted host-side into (value, container, pos)
@@ -29,8 +29,8 @@ ContainerKey = Tuple[str, str, int]  # (query_id, strand, frame)
 
 # The *_numpy prepare functions are host twins of the jitted ops, used by
 # the CLI/feeder pipeline: encode/translate is memory-trivial feeder work
-# that belongs on the host CPU next to the FASTA parser (the TPU is for
-# the probe); the jitted ops in ops/ are the canonical on-device path
+# that belongs on the host CPU next to the FASTA parser (the device is
+# for the probe); the jitted ops in ops/ are the canonical on-device path
 # (sharded annotate step, entry). tests/test_prepare_impls.py pins both
 # implementations to each other.
 from ..constants import (AA_OFF_LUT, CODON_AA_OFF, COMPL_DNA_CODE_LUT,

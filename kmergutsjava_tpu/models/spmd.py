@@ -1,7 +1,7 @@
 """Fused on-device prepare+lookup: the "spmd" engine backend.
 
 Every other backend splits the reference's phases (ref
-/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:776-803) between
+KmerGutsJava.java:776-803) between
 host prepare and a device probe over a query-k-mer stream. This backend
 instead ships raw ASCII sequence bytes to the device and runs encode,
 (6-frame translation,) 8-mer packing, and the table probe as ONE jitted

@@ -2,7 +2,7 @@
 //
 // One pass over the whole input buffer replaces the Python line
 // generator of formats/fasta.py (the reference's readFasta loop,
-// /root/reference/lib/src/kmergutsjava/KmerGutsJava.java:1132-1192),
+// KmerGutsJava.java:1132-1192),
 // reproducing its quirks exactly — Java trim (every char <= ' '),
 // bare-">" lines silently skipped while seeking a caption, caption ids
 // as the first space/tab token with the description re-joined by single

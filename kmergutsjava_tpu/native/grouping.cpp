@@ -1,7 +1,7 @@
 // Native core of the hit-grouping state machine (CALL/OTU), batch form.
 //
 // Exact transcription of the reference's gatherHits/processSetOfHits
-// (/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:457-514 and
+// (KmerGutsJava.java:457-514 and
 // :385-455), matching kmergutsjava_tpu/calls/grouping.py line for line:
 // gap segmentation with seed-pair carryover, mid-run new-function-pair
 // triggers, the MAX_HITS_PER_SEQ-2 append cap, the optional order

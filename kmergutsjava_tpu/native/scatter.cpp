@@ -1,10 +1,9 @@
 // Native dense-tile scatter for the stream lookup front end.
 //
-// The Pallas stream kernel (kmergutsjava_tpu/lookup/pallas_stream.py)
-// probes billions of slot-channels per second, but its host front end —
-// bucketing query k-mers by home slot into the dense [nsuper, C, ROWS,
-// BLOCK] fingerprint tile — ran at ~3.6M queries/s in numpy (np.unique +
-// argsort per chunk). This scatter replaces that path: one pass over the
+// The dense stream probe (kmergutsjava_tpu/lookup/stream.py) needs its
+// query k-mers bucketed by home slot into the dense [nsuper, C, ROWS,
+// BLOCK] fingerprint tile; the numpy twin does that with np.unique +
+// argsort per chunk. This scatter replaces that path: one pass over the
 // chunk, O(1) per query, threaded by home-slot range (below).
 //
 // Deduplication is by (home slot, fingerprint), and the dedup structure
@@ -17,10 +16,10 @@
 // from exhausting a home slot's C channels.
 //
 // Sharing a cell on a fingerprint collision (two DISTINCT values with
-// equal home and equal fp) is sound: the kernel only ever matches
+// equal home and equal fp) is sound: the probe only ever matches
 // fingerprints, and the host decode verifies every candidate against the
 // full k-mer value, routing failures to the exact full-window fallback
-// (lookup/pallas_stream.py _decode). Both colliding queries therefore
+// (lookup/stream.py _decode). Both colliding queries therefore
 // still get exact answers.
 //
 // THREADING (exactness preserved): the tile/occupancy mutation is
@@ -35,13 +34,13 @@
 // hardware concurrency; small chunks stay sequential.
 //
 // Outputs per query: home slot, flat element index into the flattened
-// kernel output [nsuper, C/4, ROWS, BLOCK], and the bit shift of its
-// packed result byte (the kernel packs 4 channels' offsets per int32);
+// probe output [nsuper, C/4, ROWS, BLOCK], and the bit shift of its
+// packed result byte (the probe packs 4 channels' offsets per int32);
 // shift = -1 marks channel overflow (the caller routes those to the
 // exact fallback).
 //
 // Reference analog: the home-slot routing side of the merge-join scan,
-// /root/reference/lib/src/kmergutsjava/KmerGutsJava.java:964-994
+// KmerGutsJava.java:964-994
 // (neededHashCode = value % numSigs and the inProgress keying).
 
 #include <atomic>
@@ -99,16 +98,14 @@ inline int64_t place_one(int64_t i, const int64_t* values,
 
 }  // namespace
 
-// Native decode of the stream kernel's packed output: candidate-offset
+// Native decode of the stream probe's packed output: candidate-offset
 // extraction, stop-at-empty gating, full-value verification, the exact
 // full-window fallback and hit compaction in two lean passes per query
 // (resolve_slots + emit_hits — split so the caller can allocate hit
 // columns at their EXACT final size between the passes, eliminating the
-// capacity-n buffers and their shrinking copies, which measured as the
-// single largest host cost on the proteome corpus). The numpy twin
-// (lookup/pallas_stream.py _decode_numpy) needs ~20 full-size array
-// passes for the same job; on hosts where memory is the bottleneck (and
-// at metagenome scales it always is) these passes are ~10x faster.
+// capacity-n buffers and their shrinking copies). The numpy twin
+// (lookup/stream.py _decode_numpy) needs ~20 full-size array passes for
+// the same job.
 //
 // Per query: if shift < 0 the query overflowed its home's channels at
 // scatter time -> probe the window directly. Otherwise read its packed
@@ -119,7 +116,7 @@ inline int64_t place_one(int64_t i, const int64_t* values,
 // slot between home and placement occupied, see lookup/xla.py).
 //
 // Exactness contract as the reference's merge-join scan
-// (/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:995-1016):
+// (KmerGutsJava.java:995-1016):
 // a hit's slot holds the exact k-mer value; misses stop at an empty slot.
 //
 // THREADING: queries are independent (all shared state is read-only), so
@@ -174,7 +171,7 @@ inline int64_t resolve_one(int64_t i, const int64_t* v, const int64_t* homes,
 extern "C" int64_t resolve_slots(
     const int64_t* v, const int64_t* homes, const int64_t* flat,
     const int32_t* shift, int64_t n,
-    const int32_t* out,       // flattened kernel output
+    const int32_t* out,       // flattened probe output
     const uint8_t* fe,        // per-slot distance to first empty (cap w)
     const int64_t* hk,        // padded host k-mer plane
     int64_t hk_len, int64_t w, int64_t full_w,
@@ -393,7 +390,7 @@ extern "C" int64_t scatter_chunk(
     uint16_t* qfp_tiles,   // [nsuper*channels*rows*block], mutated
     uint8_t* occ,          // [num_sigs] per-slot channel occupancy, mutated
     int64_t* homes,        // out [n]
-    int64_t* flat,         // out [n] flat kernel-output element index
+    int64_t* flat,         // out [n] flat probe-output element index
     int32_t* shift)        // out [n] packed-byte bit shift; -1 = overflow
 {
     const ScatterDims d{num_sigs, channels, block, rows, fp_mod,
@@ -472,8 +469,7 @@ extern "C" int64_t scatter_chunk(
 // Chunked-probe bin router (lookup/xla.py probe_impl="chunked").
 //
 // Routes query fingerprints into per-chunk capacity bins for the
-// chunk-local device gather (the 2x sparse-probe win on HBM-bound
-// planes, docs/performance.md round 2). rank_of[i] = how many earlier
+// chunk-local device gather. rank_of[i] = how many earlier
 // queries (input order) share query i's chunk — i.e. the bin cell in
 // sequential encounter order — so the output is BIT-IDENTICAL to the
 // single-thread pass and to the numpy stable-argsort twin at any thread
@@ -553,107 +549,6 @@ extern "C" void bin_queries(
                 qfp_b[cell] = qfp[i];
                 row_b[cell] = (uint16_t)(row - c * chunk_rows);
                 off_b[cell] = (uint8_t)(h - row * stride);
-            }
-        }
-    });
-}
-
-// ---------------------------------------------------------------------
-// Tile-join bin router (lookup/pallas_tilejoin.py, probe_impl
-// "tilejoin"), DENSE variant: bins cover EVERY super-tile (the kernel
-// grid is then simply 0..n_tiles/tpg), which the dispatcher uses only
-// when the query load is dense enough that most tiles are touched
-// anyway — the regime the tile-join kernel exists for. Each query packs
-// (qfp<<14 | local_row<<7 | in_row_offset) into the int32 cell
-// tile*cap + rank, rank = encounter-order rank within the TILE;
-// rank_of[i] = sub_tile*cap + rank (the flattened block cell), or the
-// sentinel tpg*cap when the tile overflowed cap (exact host pass).
-// Bit-identical ranks at any thread count (same per-thread histogram +
-// exclusive-cursor scheme as bin_queries above; pinned against the
-// numpy twin by tests/test_tilejoin.py).
-// n_bands > 1 (the banded kernel form "gather2b",
-// pallas_tilejoin.band_geometry): a tile's cap cells split into n_bands
-// home-offset bands of bcap = cap/n_bands cells each (band = in-row
-// offset / bw, bw = ceil(stride/8) * 8/n_bands); ranks count within
-// (tile, band) and overflow at bcap. n_bands = 1 is the classic layout.
-extern "C" void bin_tiles_dense(
-    const int32_t* homes, const uint16_t* qfp, int64_t n,
-    int64_t stride, int64_t tpg, int64_t n_tiles, int64_t cap,
-    int64_t n_bands,
-    int32_t* packed_b,  // [n_tiles*cap] pre-filled with the pad word
-    int64_t* block_of,  // out [n]
-    int64_t* rank_of)   // out [n]
-{
-    const int64_t tile_span = stride * 128;
-    const int64_t bw = ((stride + 7) / 8) * (8 / n_bands);
-    const int64_t bcap = cap / n_bands;
-    const int64_t n_keys = n_tiles * n_bands;
-    const int T0 = num_threads();
-    const int T = n < (int64_t)1 << 15 ? 1
-        : (int)(n / 16384 < T0 ? n / 16384 : T0);
-    const int64_t step = (n + T - 1) / T;
-    if (T <= 1) {
-        std::vector<int64_t> cur(n_keys, 0);
-        for (int64_t i = 0; i < n; i++) {
-            const int64_t h = homes[i];
-            const int64_t t = h / tile_span;
-            const int64_t row = h / stride;
-            const int64_t off = h - row * stride;
-            const int64_t band = n_bands > 1 ? off / bw : 0;
-            const int64_t r = cur[(size_t)(t * n_bands + band)]++;
-            const int64_t sub = t % tpg;
-            block_of[i] = t / tpg;
-            const int64_t base = band * bcap;
-            rank_of[i] = r < bcap ? sub * cap + base + r : tpg * cap;
-            if (r < bcap) {
-                packed_b[t * cap + base + r] =
-                    (int32_t)(((int64_t)qfp[i] << 14)
-                              | ((row & 127) << 7) | off);
-            }
-        }
-        return;
-    }
-    std::vector<int64_t> hist((size_t)T * n_keys, 0);
-    parallel_for_threads(T, [&](int t) {
-        const int64_t a = t * step;
-        const int64_t b = a + step < n ? a + step : n;
-        int64_t* h_t = hist.data() + (size_t)t * n_keys;
-        for (int64_t i = a; i < b; i++) {
-            const int64_t h = homes[i];
-            const int64_t tl = h / tile_span;
-            const int64_t band = n_bands > 1
-                ? (h - (h / stride) * stride) / bw : 0;
-            h_t[tl * n_bands + band]++;
-        }
-    });
-    for (int64_t c = 0; c < n_keys; c++) {
-        int64_t run = 0;
-        for (int t = 0; t < T; t++) {
-            const size_t k = (size_t)t * n_keys + c;
-            const int64_t v = hist[k];
-            hist[k] = run;
-            run += v;
-        }
-    }
-    parallel_for_threads(T, [&](int t) {
-        const int64_t a = t * step;
-        const int64_t b = a + step < n ? a + step : n;
-        int64_t* cur_t = hist.data() + (size_t)t * n_keys;
-        for (int64_t i = a; i < b; i++) {
-            const int64_t h = homes[i];
-            const int64_t tl = h / tile_span;
-            const int64_t row = h / stride;
-            const int64_t off = h - row * stride;
-            const int64_t band = n_bands > 1 ? off / bw : 0;
-            const int64_t r = cur_t[tl * n_bands + band]++;
-            const int64_t sub = tl % tpg;
-            block_of[i] = tl / tpg;
-            const int64_t base = band * bcap;
-            rank_of[i] = r < bcap ? sub * cap + base + r : tpg * cap;
-            if (r < bcap) {
-                packed_b[tl * cap + base + r] =
-                    (int32_t)(((int64_t)qfp[i] << 14)
-                              | ((row & 127) << 7) | off);
             }
         }
     });

@@ -1,19 +1,11 @@
 """Character-level encoding ops (jitted JAX).
 
 Every per-character switch statement in the reference
-(/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:111-318) becomes a
-256-entry byte LUT over uint8 ASCII arrays — no branches, no dynamic
-shapes. On TPU the LUT is applied as a ONE-HOT bf16 MATMUL on the MXU
-(`byte_lut`): XLA lowers small-operand 1-D gathers to a near-scalar form
-that measured 124M elements/s and capped the whole fused SPMD prepare,
-while the one-hot product runs 1.7-20B elements/s (scripts/sweep_fuse*.py,
-round 3). The matmul is EXACT: one nonzero product per row (one-hot),
-f32 accumulation, and every LUT value (0..21) is an exact bf16. Non-TPU
-backends keep the plain gather (one-hot is 256 ops/element on a CPU).
+(KmerGutsJava.java:111-318) becomes a 256-entry byte LUT over uint8 ASCII
+arrays, applied as a plain table gather — no branches, no dynamic shapes.
 """
 from __future__ import annotations
 
-import os
 from functools import partial
 
 import jax
@@ -30,32 +22,10 @@ _DNA_CODE = np.asarray(DNA_CODE_LUT)
 _COMPL_DNA_CODE = np.asarray(COMPL_DNA_CODE_LUT)
 
 
-def _mxu_luts() -> bool:
-    """Trace-time choice of LUT implementation. KMER_MXU_LUT=0 forces the
-    gather everywhere; =force applies the matmul form on any backend
-    (differential tests use it to pin exactness on CPU)."""
-    env = os.environ.get("KMER_MXU_LUT")
-    if env == "0":
-        return False
-    if env == "force":
-        return True
-    return jax.default_backend() == "tpu"
-
-
 def byte_lut(lut: np.ndarray, idx_i32: jax.Array, width: int = 256
              ) -> jax.Array:
-    """Apply a small value LUT to integer codes in [0, width).
-
-    TPU: one-hot bf16 matmul (MXU), exact for uint8-valued tables (single
-    nonzero product per row, f32 accumulation). Elsewhere: plain gather.
-    """
-    if not _mxu_luts():
-        return jnp.asarray(lut[:width])[idx_i32]
-    oh = jax.nn.one_hot(idx_i32, width, dtype=jnp.bfloat16)
-    tbl = jnp.asarray(np.asarray(lut[:width], np.float32),
-                      dtype=jnp.bfloat16)
-    return jnp.dot(oh, tbl, preferred_element_type=jnp.float32).astype(
-        lut.dtype)
+    """Apply a small value LUT to integer codes in [0, width)."""
+    return jnp.asarray(lut[:width])[idx_i32]
 
 
 @jax.jit

@@ -1,7 +1,7 @@
 """Amino-acid 8-mer packing as a vectorized polynomial evaluation (jitted JAX).
 
 Replaces the reference's per-window scalar loop (encodedKmer,
-/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:274-292, driven by
+KmerGutsJava.java:274-292, driven by
 addKmers :900-922) with shifted-slice arithmetic: value(start i) =
 sum_k a[i+k] * 20^(7-k), validity = all 8 offsets < 20 AND i < num_starts.
 
@@ -67,10 +67,9 @@ def kmer_window_mods(aa_off: jax.Array, num_starts: jax.Array,
                      mods: tuple):
     """Residues of every window's packed value, in PURE int32.
 
-    TPU has no native int64 lanes — XLA emulates each 64-bit multiply as a
-    multi-op 32-bit sequence, which measures 2.5x slower than this form on
-    the fused-step prepare (scripts/sweep_fuse5.py: 607M -> 1.53G
-    windows/s). The fingerprint-candidate probe protocol (round 3) only
+    Keeping the fused prepare free of 64-bit integer arithmetic halves
+    the bytes of every intermediate and avoids multi-instruction 64-bit
+    multiplies. The fingerprint-candidate probe protocol (round 3) only
     ever needs value % num_sigs (the home slot) and value % 65535 (the
     fingerprint), never the value itself, and each residue is computable
     without i64:

@@ -1,7 +1,7 @@
 """Six-frame DNA translation as vectorized gathers (jitted JAX).
 
 The reference translates one frame at a time with a scalar codon walk
-(translate, /root/reference/lib/src/kmergutsjava/KmerGutsJava.java:320-343)
+(translate, KmerGutsJava.java:320-343)
 into a reused buffer of length len/3+1, writing a terminator (offset 21) one
 past the last codon. Here all 6 frames are produced in one shot as a
 [6, Lpad//3] array of amino-acid offsets where every position at or past the
@@ -42,9 +42,7 @@ def _frames_from_codes(codes: jax.Array, length: jax.Array) -> jax.Array:
         c3 = jnp.take(codes, pos + 2, mode="fill", fill_value=INVALID_DNA)
         codon_ok = (c1 < 4) & (c2 < 4) & (c3 < 4)
         idx = (c1.astype(jnp.int32) * 16 + c2.astype(jnp.int32) * 4 + c3.astype(jnp.int32))
-        # 64-entry codon LUT via encode.byte_lut: one-hot MXU matmul on
-        # TPU (the gather form near-capped the whole DNA translate at
-        # ~109M windows/s; scripts/sweep_fuse3.py), plain gather elsewhere
+        # 64-entry codon LUT via encode.byte_lut
         aa = jnp.where(codon_ok,
                        byte_lut(_CODON_AA, jnp.where(codon_ok, idx, 0),
                                 width=64),

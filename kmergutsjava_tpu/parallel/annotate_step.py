@@ -9,9 +9,8 @@ FINGERPRINT-match slot + 1 (0 = no candidate) — on every data shard. The
 host verifies each candidate against the recomputed query value and
 gathers hit metadata (sharded_lookup.verify_candidates /
 gather_hit_metadata, ops/hostvalues.py), so only the 2-byte-per-slot
-uint16 fingerprint plane occupies device HBM (4x the table per chip vs
-the round-3 int64 plane, ~1.6x the probe rate) and 4 bytes per window
-travel back.
+uint16 fingerprint plane occupies device memory (4x the table per
+device vs an int64 plane) and 4 bytes per window travel back.
 """
 from __future__ import annotations
 
@@ -35,10 +34,8 @@ from .sharded_lookup import _local_probe, shard_table_planes
 def _window_homes_qfp(offs, num_starts, num_sigs):
     """(homes, qfp, ok) per window — int32-only whenever the table
     allows it (num_sigs <= MOD32_LIMIT ~ 97.6M slots, i.e. every
-    production table): int64 lanes are XLA-emulated on TPU and measured
-    2.5x slower on the fused prepare (ops/kmerize.kmer_window_mods,
-    scripts/sweep_fuse5.py). Beyond the limit the int64 path remains,
-    pinned identical by tests/test_hostvalues.py."""
+    production table; see ops/kmerize.kmer_window_mods). Beyond the limit
+    the int64 path remains, pinned identical by tests/test_hostvalues.py."""
     if num_sigs <= MOD32_LIMIT:
         (homes, qfp), ok = kmer_window_mods(offs, num_starts,
                                             (num_sigs, FP_MOD))
@@ -53,9 +50,7 @@ def _encode_and_probe(tk, ascii_u8, lengths,
                       *, s_loc, probe_window, num_sigs, stride=0,
                       lanes=128):
     """Per-device body (runs inside shard_map)."""
-    # encode via byte_lut: on TPU the one-hot MXU form lifted the fused
-    # step from 69.5M to 145M windows/s (the 256-LUT gather alone was the
-    # 124M/s prepare ceiling; scripts/sweep_fuse2.py, round 3)
+    # encode via the 256-entry byte LUT
     offs = byte_lut(np.asarray(AA_OFF_LUT), ascii_u8.astype(jnp.int32))
     b, n = offs.shape
     w = n - K + 1

@@ -1,7 +1,7 @@
 """Device mesh construction for the annotation engine.
 
 Two mesh axes (the reference has no parallelism at all — SURVEY.md §2.2 —
-so this is new, TPU-first design):
+so this is new design):
 
 - ``data``: reads/contigs/query k-mers are sharded along this axis
   (data parallelism over the input stream);

@@ -1,15 +1,15 @@
-"""Multi-host pod-slice execution helpers.
+"""Multi-host execution helpers.
 
 The reference is a single JVM with no distribution story (SURVEY.md §2.2);
-the TPU-native scaling path is:
+the multi-host scaling path is:
 
-- ``jax.distributed.initialize`` per host (ICI inside a slice, DCN across
-  hosts) — the only process-level setup the engine needs;
+- ``jax.distributed.initialize`` per host — the only process-level setup
+  the engine needs;
 - input sharding at the FASTA level: each host parses only its share of
   records (round-robin by record index, so no host-to-host data exchange is
   needed before the device phase);
 - the (data, table) mesh from parallel/mesh spans all hosts; shard_map's
-  psum hit-merge rides ICI/DCN automatically;
+  psum hit-merge rides the interconnect automatically;
 - hit containers are host-local (a record's 6 containers live where it was
   parsed), so the grouping phase and report emission need no collectives —
   each host writes its own report shard, and ``merge_report_shards``

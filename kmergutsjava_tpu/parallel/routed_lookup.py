@@ -45,10 +45,10 @@ def _routed_step(fp_ref, qfp, homes, valid, *, s_loc, probe_window, cap,
     """Per-device body under shard_map.
 
     fp_ref: [1, rows_loc, 128] local fingerprint slice (slot-range slice
-    + probe halo, laid out in 128-lane rows — TPU XLA vectorizes row
-    gathers but runs 1-D-operand gathers scalar, see docs/performance.md;
-    with stride > 0 the rows OVERLAP so any window fits in one row — one
-    gather instead of two, as in lookup/xla.py probe_fingerprint_rows1)
+    + probe halo, laid out in 128-lane rows, so a window is one or two
+    contiguous row loads; with stride > 0 the rows OVERLAP so any window
+    fits in one row — one gather instead of two, as in lookup/xla.py
+    probe_fingerprint_rows1)
     qfp/homes/valid: [n_loc] local query slice
     Returns (off_u8, state_u8, overflow_bool) for the local queries.
     """

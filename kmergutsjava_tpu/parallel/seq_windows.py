@@ -2,7 +2,7 @@
 
 The reference handles arbitrarily long contigs sequentially — a 4.6 Mbp
 contig is one char array walked frame by frame (processSeq,
-/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:538-558). The SPMD
+KmerGutsJava.java:538-558). The SPMD
 annotate step (parallel/annotate_step.py) places whole contigs on data
 shards, which caps parallelism at the contig count; this module completes
 the SURVEY §2.2 "sequence parallelism analog": ONE contig is split into

@@ -1,7 +1,7 @@
 """Multi-chip lookup: slot-range-sharded table + data-sharded queries.
 
 The reference's scalability story is out-of-core disk streaming
-(SURVEY.md §2.2); the TPU-native story is an HBM-resident table sharded by
+(SURVEY.md §2.2); here it is a device-resident table sharded by
 slot range across the ``table`` mesh axis, query batches sharded across the
 ``data`` axis, and a psum hit-merge:
 
@@ -15,11 +15,8 @@ slot range across the ``table`` mesh axis, query batches sharded across the
 The device plane is the uint16 FINGERPRINT of the k-mer column
 (``kmer % 65535``, sentinel 65535 = empty — the same plane design as the
 single-chip fast paths, lookup/xla.py): 2 bytes per slot instead of the
-8-byte int64 k-mer plane shipped through round 3, so a chip holds 4x the
-table and the per-query gather reads 256 B instead of 1024 B (the honest
-round-3 gather ladder measures the u16 row gather ~1.6x the i64 one at
-equal slot counts, and the smaller plane stays out of the 64-256 MB
-operand cliff 4x longer). The device answer is ONE int32 per query — the
+8-byte int64 k-mer plane, so a device holds 4x the table and the
+per-query gather reads 256 B instead of 1024 B. The device answer is ONE int32 per query — the
 first-fingerprint-match slot + 1 (0 = no candidate) — which the host
 VERIFIES against the full k-mer value (`verify_candidates`): a true match
 always fingerprint-matches at-or-before itself, so candidates are a
@@ -47,18 +44,13 @@ from .mesh import DATA_AXIS, TABLE_AXIS
 def shard_table_planes(table: KmerTable, n_shards: int, probe_window: int):
     """Host-side prep: per-shard slot-range slices of the uint16
     FINGERPRINT plane (+ probe halo) laid out in 128-lane overlapped
-    rows — TPU XLA vectorizes whole-row gathers but runs 1-D-operand
-    gathers scalar. Only 2 bytes per slot ship to the device (the probe
-    answers with a candidate slot; the host verifies it against the full
-    k-mer value and gathers metadata — `verify_candidates` /
+    rows, so every probe window is one or two contiguous row loads. Only
+    2 bytes per slot ship to the device (the probe answers with a
+    candidate slot; the host verifies it against the full k-mer value and
+    gathers metadata — `verify_candidates` /
     `gather_hit_metadata`).
 
-    Lane width: 128 is the HONEST optimum — with per-iteration home
-    variation (scripts/sweep_fuse2.py, round 3) the 128-lane row gather
-    beats 32/64 lanes at every plane size, for u16 and i64 alike;
-    earlier sweeps that suggested narrow rows held homes loop-invariant,
-    letting XLA hoist the (small) narrow gather out of the timing loop.
-    KMER_SHARD_LANES overrides for experiments.
+    Lane width: 128 by default; KMER_SHARD_LANES overrides.
 
     Overlapped layout (row r = local slots [r*stride, r*stride + lanes),
     stride = lanes - probe_window) so any window lies in ONE row.
@@ -132,8 +124,7 @@ def _local_probe(tk, qfp, homes, s_loc, probe_window, stride=0,
     shard_map; the fingerprint plane's leading shard dim is squeezed to 1.
     ``qfp`` is the queries' uint16 fingerprint (value % 65535, any int
     dtype accepted) — the device never touches the int64 value at all
-    (int64 lanes are XLA-emulated on TPU and measured 2.5x slower on the
-    fused prepare; see ops/kmerize.kmer_window_mods).
+    (see ops/kmerize.kmer_window_mods).
     Row-gather formulation (no scalar gathers): with an overlapped layout
     (stride > 0, see shard_table_planes) the whole window lies in one
     `lanes`-wide row — one u16 row gather (256 B) per query; the plain

@@ -1,8 +1,7 @@
-"""Multi-chip dense stream lookup: superblock-sharded plane + query tiles.
+"""Multi-device dense stream lookup: superblock-sharded plane + query tiles.
 
-TPU-native scaling of the zero-gather stream kernel
-(lookup/pallas_stream.py; the reference's lookup loop analog,
-/root/reference/lib/src/kmergutsjava/KmerGutsJava.java:944-1034).
+Scaling of the zero-gather stream probe (lookup/stream.py; the
+reference's lookup loop analog, KmerGutsJava.java:944-1034).
 
 The dense-tile formulation routes every query to its home slot at scatter
 time, so sharding the fingerprint plane by superblock range simultaneously
@@ -10,33 +9,34 @@ shards the query tiles: plane shard i pairs with tile shard i and the probe
 needs NO collectives at all (contrast routed_lookup.py, which must
 all_to_all the query stream to its owner shard). Per-row probe halos are
 built into the plane layout host-side, so there is no cross-shard halo
-exchange either. The kernel is VPU-compute-bound and every shard streams
-only its slice, so scaling is linear in the table axis by construction;
-the only multi-chip cost is scattering tile shards host->device.
+exchange either. Every shard streams only its slice, so the device work
+splits evenly over the table axis; the only multi-device cost is
+scattering tile shards host->device.
 """
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from ..formats.kmer_table import KmerTable
-from ..lookup.pallas_stream import BLOCK, CHANNELS, HALO, ROWS, \
-    PallasStreamLookup
+from ..lookup.stream import StreamLookup, stream_probe_blocks
 from .mesh import TABLE_AXIS
 
 
 def make_stream_mesh(n_shards: int) -> jax.sharding.Mesh:
-    devs = np.array(jax.devices()[:n_shards])
+    devs = jax.devices()
+    if n_shards > len(devs):
+        raise ValueError(f"stream mesh needs {n_shards} devices, "
+                         f"{len(devs)} available")
+    devs = np.array(devs[:n_shards])
     return jax.sharding.Mesh(devs, (TABLE_AXIS,))
 
 
-class StreamShardedLookup(PallasStreamLookup):
-    """Stream-kernel lookup with the plane and tiles sharded over a 1-D
+class StreamShardedLookup(StreamLookup):
+    """Stream-probe lookup with the plane and tiles sharded over a 1-D
     ``table`` mesh. Same exact-result contract as the single-chip class
     (host verification + exact fallback are inherited unchanged)."""
 
@@ -50,22 +50,16 @@ class StreamShardedLookup(PallasStreamLookup):
         self.n_shards = int(mesh.shape[TABLE_AXIS])
         self._spec = P(TABLE_AXIS)
         super().__init__(table, nsuper_multiple=self.n_shards, **kw)
-        nsuper_loc = self.nsuper // self.n_shards
 
         def local_probe(fp_loc, tiles_loc):
-            # one pallas grid per shard over its local superblocks; no
+            # one probe per shard over its local superblocks; no
             # collectives — tile shard i holds exactly the queries whose
             # home slots live in plane shard i
-            from ..lookup.pallas_stream import stream_probe_blocks
+            return stream_probe_blocks(fp_loc, tiles_loc, self.w,
+                                       self.channels)
 
-            return stream_probe_blocks(fp_loc, tiles_loc, nsuper_loc,
-                                       self.w, self.channels, self.interpret)
-
-        # check_vma=False: pallas_call's out_shape carries no varying-axis
-        # annotation, which the vma checker (this JAX) rejects inside
-        # shard_map
         self._step = jax.jit(jax.shard_map(
-            local_probe, mesh=mesh, check_vma=False,
+            local_probe, mesh=mesh,
             in_specs=(self._spec, self._spec), out_specs=self._spec))
 
     def _place_plane(self, fp_host: np.ndarray, device):

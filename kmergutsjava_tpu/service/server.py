@@ -440,6 +440,9 @@ def main(argv=None) -> int:
     ap.add_argument("--warm", action="store_true",
                     help="preload table + device planes before serving")
     args = ap.parse_args(argv)
+    from .. import enable_compile_cache
+
+    enable_compile_cache()
     auth = None
     if args.auth_url:
         from .auth import AuthClient

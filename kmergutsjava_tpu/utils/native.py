@@ -1,10 +1,10 @@
 """ctypes loaders for the native components (kmergutsjava_tpu/native/*.cpp).
 
-Each loader builds its shared library on demand with g++ and returns None
-when no toolchain is available, so callers fall back to their numpy twins.
-The sources ship as package data, so installed copies (pip/Docker) get the
-native paths too; the .so lands beside the source when that directory is
-writable, else in a per-user cache dir.
+Each loader builds its shared library on demand with g++ (or use
+``make all``) beside its source, and returns None when the build fails, so
+callers fall back to their numpy twins; ``native_status()`` says which
+libraries loaded and why the others did not. The sources ship as package
+data, so installed copies (pip/Docker) get the native paths too.
 """
 from __future__ import annotations
 
@@ -28,34 +28,42 @@ _U16P = np.ctypeslib.ndpointer(np.uint16, flags="C_CONTIGUOUS")
 _F32P = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
 
 
-def _so_path(name: str) -> str:
-    beside = os.path.join(_SRC_DIR, name + ".so")
-    if os.access(_SRC_DIR, os.W_OK):
-        return beside
-    cache = os.path.join(os.path.expanduser("~"), ".cache",
-                         "kmergutsjava_tpu")
-    os.makedirs(cache, exist_ok=True)
-    return os.path.join(cache, name + ".so")
-
-
-def _build(name: str) -> Optional[ctypes.CDLL]:
+def _build(name: str) -> ctypes.CDLL:
+    """Build (when missing or older than its sources) and load one
+    library. Compiles to a private temp file and renames it into place, so
+    processes building the same library at once never load a half-written
+    file."""
     src = os.path.join(_SRC_DIR, name + ".cpp")
     hdr = os.path.join(_SRC_DIR, "threading.h")
-    so = _so_path(name)
-    try:
-        src_mtime = os.path.getmtime(src)
-        if os.path.exists(hdr):
-            src_mtime = max(src_mtime, os.path.getmtime(hdr))
-        if not os.path.exists(so) or os.path.getmtime(so) < src_mtime:
-            subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-pthread",
-                            "-o", so, src],
-                           check=True, capture_output=True)
-        return ctypes.CDLL(so)
-    except Exception:
-        return None
+    so = os.path.join(_SRC_DIR, name + ".so")
+    src_mtime = os.path.getmtime(src)
+    if os.path.exists(hdr):
+        src_mtime = max(src_mtime, os.path.getmtime(hdr))
+    if not os.path.exists(so) or os.path.getmtime(so) < src_mtime:
+        tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
+        try:
+            proc = subprocess.run(["g++", "-O3", "-shared", "-fPIC",
+                                   "-pthread", "-o", tmp, src],
+                                  capture_output=True, text=True)
+            if proc.returncode:
+                raise OSError(f"g++ failed: {proc.stderr.strip()[-500:]}")
+            os.replace(tmp, so)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return ctypes.CDLL(so)
 
 
 _libs: dict = {}
+_errors: dict = {}  # name -> why the library is unavailable
+
+
+def native_status() -> dict:
+    """name -> "loaded" or the reason it is not, for every library a
+    loader has been asked for so far."""
+    with _lock:
+        return {name: "loaded" if lib is not None else _errors.get(name, "")
+                for name, lib in _libs.items()}
 
 
 def _load(name: str, env_off: str, bind) -> Optional[ctypes.CDLL]:
@@ -63,13 +71,15 @@ def _load(name: str, env_off: str, bind) -> Optional[ctypes.CDLL]:
         if name in _libs:
             return _libs[name]
         lib = None
-        if not os.environ.get(env_off):
-            lib = _build(name)
-            if lib is not None:
-                try:
-                    bind(lib)
-                except Exception:
-                    lib = None
+        if os.environ.get(env_off):
+            _errors[name] = f"disabled by {env_off}"
+        else:
+            try:
+                lib = _build(name)
+                bind(lib)
+            except (OSError, AttributeError) as ex:
+                _errors[name] = f"{type(ex).__name__}: {ex}"
+                lib = None
         _libs[name] = lib
         return lib
 
@@ -137,16 +147,6 @@ def _bind_scatter(lib) -> None:
         ctypes.c_int64, ctypes.c_int64,               # n_chunks, cap
         _U16P, _U16P, _U8P,                           # bins out
         _I64P, _I64P,                                 # chunk_of, rank_of out
-    ]
-    fn = lib.bin_tiles_dense
-    fn.restype = None
-    fn.argtypes = [
-        _I32P, _U16P, ctypes.c_int64,                 # homes, qfp, n
-        ctypes.c_int64, ctypes.c_int64,               # stride, tpg
-        ctypes.c_int64, ctypes.c_int64,               # n_tiles, cap
-        ctypes.c_int64,                               # n_bands
-        _I32P,                                        # packed bins out
-        _I64P, _I64P,                                 # block_of, rank_of out
     ]
 
 
@@ -219,34 +219,3 @@ def bin_queries_native(homes: np.ndarray, q_fp: np.ndarray, stride: int,
                     qfp_b.reshape(-1), row_b.reshape(-1), off_b.reshape(-1),
                     chunk_of, rank_of)
     return qfp_b, row_b, off_b, chunk_of, rank_of
-
-
-def bin_tiles_dense_native(homes: np.ndarray, q_fp: np.ndarray,
-                           stride: int, tpg: int, n_tiles: int, cap: int,
-                           n_bands: int = 1):
-    """Threaded DENSE tile binner for the tile-join kernel (scatter.cpp
-    bin_tiles_dense): bins cover every super-tile, so the kernel grid is
-    simply arange(n_tiles/tpg). Returns (ids, packed_b, block_of,
-    rank_of) with lookup/pallas_tilejoin.bin_queries_tiles semantics
-    (ranks = input encounter order per tile; overflow sentinel tpg*cap;
-    n_bands > 1 partitions each tile's cells by home-offset band for the
-    banded kernel form). None without the toolchain (or under
-    KMER_NO_NATIVE_SCATTER)."""
-    lib = load_scatter()
-    if lib is None:
-        return None
-    n = len(homes)
-    # the C ABI carries homes as int32; XlaLookup.__init__ rejects tables
-    # with >= 2^31 slots up front, so the cast below can never wrap (a
-    # wrapped home would compute a negative tile index -> OOB write)
-    nblocks = n_tiles // tpg
-    packed_b = np.full(n_tiles * cap, 0x3F80 | 127, np.int32)
-    block_of = np.empty(n, np.int64)
-    rank_of = np.empty(n, np.int64)
-    lib.bin_tiles_dense(np.ascontiguousarray(homes, np.int32),
-                        np.ascontiguousarray(q_fp, np.uint16), n,
-                        stride, tpg, n_tiles, cap, n_bands,
-                        packed_b, block_of, rank_of)
-    ids = np.arange(nblocks, dtype=np.int32)
-    return (ids, packed_b.reshape(nblocks, tpg, cap // 128, 128),
-            block_of, rank_of)

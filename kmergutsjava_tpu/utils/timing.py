@@ -3,7 +3,7 @@
 The reference's entire observability surface is wall-clock phase lines and
 10%-granularity lookup progress (ref KmerGutsJava.java:794,:803,:819,
 :1019-1025). We keep those (same text format) and add an optional
-jax.profiler trace around the device phases for TPU work analysis.
+jax.profiler trace around the device phases for device work analysis.
 """
 from __future__ import annotations
 

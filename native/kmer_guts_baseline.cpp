@@ -1,8 +1,8 @@
 // Single-core baseline: the reference engine's streaming merge-join lookup
-// (algorithm of /root/reference/lib/src/kmergutsjava/KmerGutsJava.java
+// (algorithm of KmerGutsJava.java
 // :944-1034, reimplemented in C++ — this image has no JVM, so this is the
 // measured stand-in for the Java baseline; C++ is strictly faster than the
-// JVM original, which makes the TPU-vs-baseline ratio conservative).
+// JVM original, which makes the device-vs-baseline ratio conservative).
 //
 // Usage: kmer_guts_baseline <kmer.table.mem_map> <queries.bin> [reps]
 //   queries.bin: records of {int64 value, int32 cntId, int32 pos}, sorted by

@@ -5,7 +5,7 @@ Provenance (documented in docs/parity.md): this image has no JVM, so the
 goldens cannot come from the reference Java binary.  They are produced by
 the PARITY backend (lookup/parity.py — the line-by-line emulation of the
 reference's forward-only merge-join) and accepted only if the xla and spmd
-backends (independent TPU-native designs sharing no lookup/grouping code
+backends (independent device designs sharing no lookup/grouping code
 path with it) reproduce them byte-identically.  They pin today's verified
 behavior against regression; Java-agreement itself rests on the
 transcription oracles (tests/java_oracle.py) and the quirk tests.

@@ -132,20 +132,12 @@ def run_round(seed: int, tmp: str) -> None:
         # host verification + collision fallback)
         variants.append(("sharded", {"mesh_shape": rng.choice(
             [(4, 2), (2, 4), (1, 8)])}))
-    # forced-chunked probe (the HBM-large auto default, round 2): tiny
+    # forced-chunked probe (the large-plane auto default): tiny
     # thresholds make these small random tables exercise it, incl. the
     # bin-overflow fallback under the corpus' natural home clustering
     if rng.random() < 0.3:
         variants.append(("xla", {"_chunk_rows": rng.choice([8, 32, 64,
                                                             256])}))
-    # forced tile-join probe (the HBM-large auto default on armed TPUs,
-    # round 4), both kernel forms, interpret mode on this CPU host
-    if rng.random() < 0.3:
-        variants.append(("xla", {"_tilejoin": rng.choice(["gather",
-                                                          "gather2",
-                                                          "gather2u",
-                                                          "gather2b",
-                                                          "mxu"])}))
     if rng.random() < 0.3:
         variants.append(("xla", {"prepare_impl": "numpy"}))
     if rng.random() < 0.3:
@@ -178,21 +170,14 @@ def run_round(seed: int, tmp: str) -> None:
         os.environ["KMER_NATIVE_THREADS"] = str(rng.choice([1, 2, 3, 4]))
         extra = dict(extra)
         chunk_rows = extra.pop("_chunk_rows", None)
-        tj_form = extra.pop("_tilejoin", None)
         if chunk_rows is not None:
             # force the chunked impl (narrow-lane rows1 became the auto
             # default at every plane size, so auto no longer upgrades)
             os.environ["KMER_PROBE_IMPL"] = "chunked"
             os.environ["KMER_CHUNK_ROWS"] = str(chunk_rows)
-        elif tj_form is not None:
-            os.environ["KMER_PROBE_IMPL"] = "tilejoin"
-            os.environ["KMER_TJ_FORM"] = tj_form
-            os.environ.pop("KMER_CHUNK_ROWS", None)
         else:
             os.environ.pop("KMER_PROBE_IMPL", None)
             os.environ.pop("KMER_CHUNK_ROWS", None)
-        if tj_form is None:
-            os.environ.pop("KMER_TJ_FORM", None)
         cfg = EngineConfig(backend=backend, **{**kw, **extra})
         out = io.StringIO()
         Engine(cfg).run(d, None, out, stdout=True,
@@ -201,7 +186,6 @@ def run_round(seed: int, tmp: str) -> None:
     os.environ.pop("KMER_NATIVE_THREADS", None)
     os.environ.pop("KMER_PROBE_IMPL", None)
     os.environ.pop("KMER_CHUNK_ROWS", None)
-    os.environ.pop("KMER_TJ_FORM", None)
     base = outs[0][2]
     for backend, extra, text in outs[1:]:
         if text != base:

@@ -5,20 +5,18 @@ describe exactly what the tests run.
 
 The corpus files are VENDORED into tests/data (copied from the reference's
 test/data, ref KmerGutsJavaServerTest.java:76-86) so the parity leg runs on
-any checkout; /root/reference is used as a fallback when present.
+any checkout.
 """
 import os
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-_CANDIDATES = (os.path.join(HERE, "data"), "/root/reference/test/data")
 
 
 def corpus_path(name: str) -> str:
-    for d in _CANDIDATES:
-        p = os.path.join(d, name)
-        if os.path.exists(p):
-            return p
-    raise FileNotFoundError(name)
+    p = os.path.join(HERE, "data", name)
+    if not os.path.exists(p):
+        raise FileNotFoundError(p)
+    return p
 
 
 def load_corpus(n_prot=None, genome_slice=None):

@@ -450,29 +450,27 @@ def test_probe_chunked_matches_rows1():
 
 
 def test_probe_chunked_auto_gate():
-    """auto selects chunked only for HBM-large planes; tiny planes stay
-    rows1 even when chunked is forced but the plane fits in one chunk."""
+    """auto keeps rows1 at every plane size; chunked runs only when forced,
+    and a plane smaller than one chunk stays rows1 even then."""
     import os
 
     rng = np.random.default_rng(96)
     sig = random_signatures(rng, 3000)
     table = build_table(**sig, load_factor=0.7)
-    lk = XlaLookup(table)  # auto: small plane -> rows1
+    lk = XlaLookup(table)  # auto -> rows1
     assert lk.probe_impl == "rows1"
     lk2 = XlaLookup(table, probe_impl="chunked")  # plane < one chunk
     assert lk2.probe_impl == "rows1"
-    # narrow-lane rows1 is the auto default at EVERY plane size now; the
-    # HBM-threshold upgrade only applies to forced-128-lane planes
-    os.environ["KMER_CHUNKED_MIN_BYTES"] = "1024"
     os.environ["KMER_PROBE_LANES"] = "128"
     os.environ["KMER_CHUNK_ROWS"] = "8"
     try:
-        lk3 = XlaLookup(table)  # auto, wide lanes, tiny threshold -> chunked
+        lka = XlaLookup(table)  # auto, many chunks' worth of rows -> rows1
+        lk3 = XlaLookup(table, probe_impl="chunked")
         lkn = XlaLookup(table, probe_impl="rows1")
     finally:
-        del os.environ["KMER_CHUNKED_MIN_BYTES"]
         del os.environ["KMER_PROBE_LANES"]
         del os.environ["KMER_CHUNK_ROWS"]
+    assert lka.probe_impl == "rows1"
     assert lk3.probe_impl == "chunked"
     assert lkn.lanes == 128  # env override wins over the narrow default
     rngq = np.random.default_rng(97)
@@ -507,27 +505,19 @@ def test_streaming_lookup_chunked_impl():
     assert canon(ha) == canon(hb) and ha.kmers_found == hb.kmers_found
 
 
-def test_chunk_defaults_and_explicit_values_honored():
-    """Advisor r4: an explicit chunk equal to a default must be honored;
-    chunk=None resolves the per-impl default (tilejoin raises to
-    KMER_TILEJOIN_CHUNK)."""
+@pytest.mark.parametrize("impl", ["rows1", "chunked", "rows", "flat"])
+def test_chunk_defaults_and_explicit_values_honored(impl):
+    """An explicit chunk equal to the default must be honored as passed;
+    chunk=None resolves to the default for every probe impl."""
     rng = np.random.default_rng(99)
     sig = random_signatures(rng, 30_000)
     table = build_table(**sig, load_factor=0.6)
-    lk = XlaLookup(table, probe_impl="rows1")
+    lk = XlaLookup(table, probe_impl=impl)
     assert lk.chunk == XlaLookup.DEFAULT_CHUNK
-    lk = XlaLookup(table, probe_impl="rows1", chunk=1 << 19)
+    lk = XlaLookup(table, probe_impl=impl, chunk=1 << 19)
     assert lk.chunk == 1 << 19
-    tj = XlaLookup(table, probe_impl="tilejoin")
-    if tj.probe_impl == "tilejoin":
-        # density-aware default: 500 queries/tile, floored at
-        # min(4M, 1000/tile) and capped at 16M
-        floor = min(4 << 20, 1000 * tj.n_tiles)
-        assert tj.chunk == min(max(500 * tj.n_tiles, floor), 16 << 20)
-        # the documented non-tilejoin default value, passed explicitly,
-        # must NOT be overridden to the tilejoin default
-        tj2 = XlaLookup(table, probe_impl="tilejoin", chunk=1 << 19)
-        assert tj2.chunk == 1 << 19
+    lk = XlaLookup(table, probe_impl=impl, chunk=1000)
+    assert lk.chunk == 1000
 
 
 def test_huge_table_int32_guard():

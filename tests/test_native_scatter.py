@@ -8,8 +8,8 @@ import numpy as np
 import pytest
 
 from kmergutsjava_tpu.formats.kmer_table import build_table
-from kmergutsjava_tpu.lookup.pallas_stream import (
-    BLOCK, ROWS, PallasStreamLookup, StreamingStreamLookup)
+from kmergutsjava_tpu.lookup.stream import (
+    BLOCK, ROWS, StreamLookup, StreamingStreamLookup)
 from kmergutsjava_tpu.lookup.xla import FP_MOD
 from kmergutsjava_tpu.utils.native import load_scatter
 from test_lookup import canon, make_queries
@@ -19,7 +19,7 @@ pytestmark = pytest.mark.skipif(load_scatter() is None,
                                 reason="native scatter unavailable")
 
 
-def force_numpy(lk: PallasStreamLookup) -> PallasStreamLookup:
+def force_numpy(lk: StreamLookup) -> StreamLookup:
     lk._scatter_dense = lambda *a, **kw: lk._scatter_dense_numpy(*a, **kw)
     lk._decode = lambda *a, **kw: lk._decode_numpy(*a, **kw)
     return lk
@@ -32,8 +32,8 @@ def test_native_vs_numpy_hits(seed, load, nq):
     table = build_table(**sig, load_factor=load)
     values, cnt, pos = make_queries(rng, sig["kmers"], nq)
     values[::7] = values[0]  # heavy duplication
-    a = force_numpy(PallasStreamLookup(table)).lookup(values, cnt, pos)
-    b = PallasStreamLookup(table).lookup(values, cnt, pos)
+    a = force_numpy(StreamLookup(table)).lookup(values, cnt, pos)
+    b = StreamLookup(table).lookup(values, cnt, pos)
     assert canon(a) == canon(b)
     assert a.kmers_found == b.kmers_found
 
@@ -52,8 +52,8 @@ def test_native_vs_numpy_channel_overflow():
     rng.shuffle(values)
     cnt = np.arange(len(values), dtype=np.int64) % 4
     pos = np.arange(len(values), dtype=np.int64)
-    a = force_numpy(PallasStreamLookup(table)).lookup(values, cnt, pos)
-    b = PallasStreamLookup(table).lookup(values, cnt, pos)
+    a = force_numpy(StreamLookup(table)).lookup(values, cnt, pos)
+    b = StreamLookup(table).lookup(values, cnt, pos)
     assert canon(a) == canon(b)
 
 
@@ -64,8 +64,8 @@ def test_streaming_native_matches_numpy_oneshot(n_chunks):
     table = build_table(**sig, load_factor=0.8)
     values, cnt, pos = make_queries(rng, sig["kmers"], 9000)
     values[::5] = values[1]
-    a = force_numpy(PallasStreamLookup(table)).lookup(values, cnt, pos)
-    s = StreamingStreamLookup(PallasStreamLookup(table),
+    a = force_numpy(StreamLookup(table)).lookup(values, cnt, pos)
+    s = StreamingStreamLookup(StreamLookup(table),
                               compute_kmers_found=True)
     for part in np.array_split(np.arange(len(values)), n_chunks):
         s.add_batch(values[part], cnt[part], pos[part])
@@ -101,7 +101,7 @@ def test_scatter_mt_bit_identical_to_sequential():
     rng = np.random.default_rng(23)
     sig = random_signatures(rng, 30_000)
     table = build_table(**sig, load_factor=0.8)
-    lk = PallasStreamLookup(table)
+    lk = StreamLookup(table)
     values, _, _ = make_queries(rng, sig["kmers"], 200_000)
     values[::3] = values[1]          # heavy duplication
     values[1::7] = values[4]
@@ -137,7 +137,7 @@ def test_decode_mt_bit_identical_to_sequential():
     rng = np.random.default_rng(29)
     sig = random_signatures(rng, 20_000)
     table = build_table(**sig, load_factor=0.9)
-    lk = PallasStreamLookup(table)
+    lk = StreamLookup(table)
     n = 150_000
     values, cnt, pos = make_queries(rng, sig["kmers"], n)
     _, homes, flat, shift = lk._scatter_dense_native(
@@ -167,7 +167,7 @@ def test_native_scatter_invariants():
     rng = np.random.default_rng(17)
     sig = random_signatures(rng, 1500)
     table = build_table(**sig)
-    lk = PallasStreamLookup(table)
+    lk = StreamLookup(table)
     values, _, _ = make_queries(rng, sig["kmers"], 5000)
     values[::3] = values[2]
     tiles, homes, flat, shift = lk._scatter_dense_native(

@@ -101,29 +101,3 @@ def test_aa_final_window_quirk():
     seq = "ACDEFGHIK"  # length 9
     want = oracle.prepare_query(seq, aa=True)[0]
     assert len(want) == 1 and want[0][1] == 0
-
-
-def test_byte_lut_mxu_form_exact(monkeypatch):
-    """The one-hot bf16 matmul LUT (TPU MXU form) must be bit-exact vs the
-    plain gather for every byte value of every production LUT — exactness
-    argument: one nonzero product per one-hot row, f32 accumulation, and
-    all LUT values (0..21) are exact bf16 (ops/encode.byte_lut)."""
-    import numpy as np
-
-    from kmergutsjava_tpu.constants import (AA_OFF_LUT, CODON_AA_OFF,
-                                            COMPL_DNA_CODE_LUT, DNA_CODE_LUT)
-    from kmergutsjava_tpu.ops import encode
-
-    rng = np.random.default_rng(0)
-    for lut, width in ((np.asarray(AA_OFF_LUT), 256),
-                       (np.asarray(DNA_CODE_LUT), 256),
-                       (np.asarray(COMPL_DNA_CODE_LUT), 256),
-                       (np.asarray(CODON_AA_OFF), 64)):
-        idx = np.concatenate([np.arange(width),
-                              rng.integers(0, width, 500)]).astype(np.int32)
-        monkeypatch.setenv("KMER_MXU_LUT", "0")
-        want = np.asarray(encode.byte_lut(lut, idx, width=width))
-        monkeypatch.setenv("KMER_MXU_LUT", "force")
-        got = np.asarray(encode.byte_lut(lut, idx, width=width))
-        assert got.dtype == want.dtype
-        assert np.array_equal(want, got)

@@ -1,4 +1,4 @@
-"""PallasStreamLookup (interpret mode on CPU) vs the parity oracle.
+"""StreamLookup (the dense stream probe) vs the parity oracle.
 
 Covers the dense-tile scatter (home collisions beyond C channels fall back
 to the exact path), byte-packed result decoding across all four channels,
@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 
 from kmergutsjava_tpu.formats.kmer_table import build_table
-from kmergutsjava_tpu.lookup.pallas_stream import CHANNELS, PallasStreamLookup
+from kmergutsjava_tpu.lookup.stream import CHANNELS, StreamLookup
 from kmergutsjava_tpu.lookup.parity import lookup_stream
 from test_lookup import canon, make_queries
 from test_table import random_signatures
@@ -21,7 +21,7 @@ def test_stream_vs_parity(seed, load, nq):
     table = build_table(**sig, load_factor=load)
     values, cnt, pos = make_queries(rng, sig["kmers"], nq)
     a = lookup_stream(table, values, cnt, pos)
-    b = PallasStreamLookup(table).lookup(values, cnt, pos)
+    b = StreamLookup(table).lookup(values, cnt, pos)
     assert canon(a) == canon(b)
     assert a.kmers_found == b.kmers_found
 
@@ -33,7 +33,7 @@ def test_stream_dense_queries():
     table = build_table(**sig)
     v = sig["kmers"]
     a = lookup_stream(table, v, np.zeros(len(v)), np.arange(len(v)))
-    b = PallasStreamLookup(table).lookup(v, np.zeros(len(v)), np.arange(len(v)))
+    b = StreamLookup(table).lookup(v, np.zeros(len(v)), np.arange(len(v)))
     assert len(b) == len(v)
     assert canon(a) == canon(b)
 
@@ -51,7 +51,7 @@ def test_stream_channel_overflow():
     cnt = np.arange(len(values), dtype=np.int64) % 5
     pos = np.arange(len(values), dtype=np.int64)
     a = lookup_stream(table, values, cnt, pos)
-    b = PallasStreamLookup(table).lookup(values, cnt, pos)
+    b = StreamLookup(table).lookup(values, cnt, pos)
     assert canon(a) == canon(b)
 
 
@@ -69,7 +69,7 @@ def test_stream_eight_channels():
     cnt = np.arange(len(values), dtype=np.int64) % 9
     pos = np.arange(len(values), dtype=np.int64)
     a = lookup_stream(table, values, cnt, pos)
-    b = PallasStreamLookup(table, channels=8).lookup(values, cnt, pos)
+    b = StreamLookup(table, channels=8).lookup(values, cnt, pos)
     assert canon(a) == canon(b)
 
 
@@ -78,7 +78,7 @@ def test_stream_empty_input():
     sig = random_signatures(rng, 100)
     table = build_table(**sig)
     z = np.zeros(0, dtype=np.int64)
-    assert len(PallasStreamLookup(table).lookup(z, z, z)) == 0
+    assert len(StreamLookup(table).lookup(z, z, z)) == 0
 
 
 @pytest.mark.parametrize("seed,n_chunks", [(3, 1), (4, 7), (5, 23)])
@@ -86,7 +86,7 @@ def test_streaming_stream_matches_oneshot(seed, n_chunks):
     """Chunk-by-chunk tile accumulation == one-shot scatter: the per-slot
     occupancy counter must carry collision ranks across chunk boundaries
     (same home hit from different chunks -> different channels)."""
-    from kmergutsjava_tpu.lookup.pallas_stream import StreamingStreamLookup
+    from kmergutsjava_tpu.lookup.stream import StreamingStreamLookup
 
     rng = np.random.default_rng(seed)
     sig = random_signatures(rng, 2000)
@@ -94,7 +94,7 @@ def test_streaming_stream_matches_oneshot(seed, n_chunks):
     values, cnt, pos = make_queries(rng, sig["kmers"], 9000)
     # force cross-chunk collisions: many duplicates of the same homes
     values[::5] = values[0]
-    lk = PallasStreamLookup(table)
+    lk = StreamLookup(table)
     a = lk.lookup(values, cnt, pos)
     s = StreamingStreamLookup(lk, compute_kmers_found=True)
     for part in np.array_split(np.arange(len(values)), n_chunks):
@@ -105,12 +105,12 @@ def test_streaming_stream_matches_oneshot(seed, n_chunks):
 
 
 def test_streaming_stream_empty():
-    from kmergutsjava_tpu.lookup.pallas_stream import StreamingStreamLookup
+    from kmergutsjava_tpu.lookup.stream import StreamingStreamLookup
 
     rng = np.random.default_rng(9)
     sig = random_signatures(rng, 500)
     table = build_table(**sig)
-    s = StreamingStreamLookup(PallasStreamLookup(table))
+    s = StreamingStreamLookup(StreamLookup(table))
     assert len(s.finish()) == 0
     assert len(s.partial_hits()) == 0
 
@@ -123,7 +123,7 @@ def test_non_pow2_probe_window():
     table = build_table(**sig, load_factor=0.9)
     table.compute_max_probe()
     assert 16 < table.max_probe <= 64  # fixture sanity (deterministic)
-    lk = PallasStreamLookup(table)
+    lk = StreamLookup(table)
     assert lk.w % 8 == 0
     assert table.max_probe <= lk.w < table.max_probe + 8
     values, cnt, pos = make_queries(rng, sig["kmers"], 30000)
@@ -140,14 +140,14 @@ def test_streaming_multipass_matches_oneshot(flush_limit, n_chunks,
     hits and the cross-pass kmers-found union match the one-shot path,
     including duplicates that span pass boundaries (their dedup state
     resets with the tiles)."""
-    from kmergutsjava_tpu.lookup.pallas_stream import StreamingStreamLookup
+    from kmergutsjava_tpu.lookup.stream import StreamingStreamLookup
 
     rng = np.random.default_rng(41)
     sig = random_signatures(rng, 1500)
     table = build_table(**sig, load_factor=0.8)
     values, cnt, pos = make_queries(rng, sig["kmers"], 4000)
     values[::4] = values[0]  # duplicates across every pass
-    lk = PallasStreamLookup(table)
+    lk = StreamLookup(table)
     a = lk.lookup(values, cnt, pos)
     s = StreamingStreamLookup(lk, compute_kmers_found=True,
                               flush_limit=flush_limit,
@@ -179,42 +179,3 @@ def test_streaming_multipass_end_to_end(tmp_path):
     a = run_engine(tmp_path / "d", fasta, backend="parity", **kw)
     b = run_engine(tmp_path / "d", fasta, backend="stream", **kw)
     assert a == b
-
-
-@pytest.mark.parametrize("seed,load,channels", [(3, 0.6, 4), (4, 0.9, 8)])
-def test_stream_bf16_form_vs_parity(seed, load, channels):
-    """The 16-bit (bf16-compare) kernel form must be byte-equivalent to
-    the i32 form: fingerprints mod 0x7F7F are finite non-negative bf16
-    patterns whose bit equality IS value equality, and the doubled
-    collision rate is absorbed by host verification. Differentially
-    pinned here in interpret mode so the form stays correct while
-    stream16_supported() waits for a Mosaic release that compiles it
-    (scripts/sweep_stream16.py isolated the packed compare crash)."""
-    rng = np.random.default_rng(seed)
-    sig = random_signatures(rng, 2500)
-    table = build_table(**sig, load_factor=load)
-    values, cnt, pos = make_queries(rng, sig["kmers"], 5000)
-    a = lookup_stream(table, values, cnt, pos)
-    b = PallasStreamLookup(table, channels=channels,
-                           form="bf16").lookup(values, cnt, pos)
-    assert canon(a) == canon(b)
-    assert a.kmers_found == b.kmers_found
-
-
-def test_stream16_env_force(monkeypatch):
-    from kmergutsjava_tpu.lookup import pallas_stream as ps
-
-    monkeypatch.setenv("KMER_STREAM16", "0")
-    assert ps.stream16_supported() is False
-    # "force" arms unconditionally (experiments only); "1" re-probes and
-    # arms only if the probe passes — on this CPU backend the probe path
-    # is skipped (non-TPU), so "1" stays False
-    monkeypatch.setenv("KMER_STREAM16", "force")
-    assert ps.stream16_supported() is True
-    monkeypatch.setenv("KMER_STREAM16", "1")
-    monkeypatch.setattr(ps, "_STREAM16", None)
-    assert ps.stream16_supported() is False
-    monkeypatch.delenv("KMER_STREAM16")
-    monkeypatch.setattr(ps, "_STREAM16", None)
-    # non-TPU backends never auto-arm (interpret mode gains nothing)
-    assert ps.stream16_supported() is False

@@ -1,4 +1,5 @@
 """JSON-RPC service round-trip over a live local server."""
+import os
 import threading
 
 import pytest
@@ -7,6 +8,8 @@ from kmergutsjava_tpu.formats.table_tools import (signatures_from_proteins,
                                                   write_data_dir)
 from kmergutsjava_tpu.service.client import KmerGutsClient, ServerError
 from kmergutsjava_tpu.service.server import serve
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -212,7 +215,7 @@ def test_perl_client_roundtrip(server, tmp_path):
         'die "async mismatch" unless $rep2 eq $rep;\n'
         'print "PERL-OK\\n";\n')
     out = subprocess.run(["perl", str(script)], capture_output=True,
-                         text=True, cwd="/root/repo")
+                         text=True, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert "PERL-OK" in out.stdout
 
@@ -235,7 +238,7 @@ def test_js_client_node_smoke(server, tmp_path):
     script = tmp_path / "smoke.js"
     script.write_text(
         'const { KmerGutsClient } = require'
-        '("/root/repo/clients/javascript/kmerguts_client.js");\n'
+        f'("{REPO}/clients/javascript/kmerguts_client.js");\n'
         '(async () => {\n'
         f'  const c = new KmerGutsClient("{server}");\n'
         '  const st = await c.status();\n'
@@ -273,7 +276,7 @@ def test_java_client_compile(server, tmp_path):
     out_dir.mkdir()
     compile_out = subprocess.run(
         ["javac", "-d", str(out_dir), "clients/java/KmerGutsClient.java"],
-        capture_output=True, text=True, cwd="/root/repo")
+        capture_output=True, text=True, cwd=REPO)
     assert compile_out.returncode == 0, compile_out.stderr
     main = tmp_path / "Smoke.java"
     main.write_text(

@@ -1,5 +1,9 @@
+import os
+
 from kmergutsjava_tpu.tools import main as tools_main
 from kmergutsjava_tpu.cli import main as cli_main
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 AA = "ACDEFGHIKLMNPQRSTVWY"
 
@@ -96,7 +100,7 @@ def test_prepare_deploy_cfg(tmp_path, monkeypatch):
     env = {"PATH": "/usr/bin:/bin", "data_dir": "/data/x", "PORT": "5001",
            "KMER_DEPLOYMENT_CONFIG": str(ini)}
     r = subprocess.run([sys.executable, "scripts/prepare_deploy_cfg.py",
-                        str(tmpl), str(out)], env=env, cwd="/root/repo",
+                        str(tmpl), str(out)], env=env, cwd=REPO,
                        capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
     assert out.read_text() == "dir=/data/x\nport=5001\nwk=8\n"
@@ -104,7 +108,7 @@ def test_prepare_deploy_cfg(tmp_path, monkeypatch):
     # unresolved placeholder -> loud failure naming the key
     tmpl.write_text("x={{ nope_missing }}\n")
     r = subprocess.run([sys.executable, "scripts/prepare_deploy_cfg.py",
-                        str(tmpl), str(out)], env=env, cwd="/root/repo",
+                        str(tmpl), str(out)], env=env, cwd=REPO,
                        capture_output=True, text=True)
     assert r.returncode == 1
     assert "nope_missing" in r.stderr
